@@ -1,0 +1,73 @@
+"""Guards on the port as a whole: what it imports, where it runs, and its
+matmul precision."""
+import ast
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import viabel_tpu_torch as pt
+from viabel_tpu_torch import _device
+from viabel_tpu_torch.models import eight_schools_cp_model
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _port_sources():
+    pkg = os.path.join(ROOT, 'viabel_tpu_torch')
+    for dirpath, _, files in os.walk(pkg):
+        for f in files:
+            if f.endswith('.py'):
+                yield os.path.join(dirpath, f)
+    yield os.path.join(ROOT, 'chip_smoke.py')
+
+
+def _imported_modules(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    sources = list(_port_sources())
+    assert len(sources) > 10
+    for path in sources:
+        for mod in _imported_modules(path):
+            top = mod.split('.')[0]
+            assert top not in ('jax', 'jaxlib', 'viabel_tpu'), (
+                '{} imports {}'.format(os.path.relpath(path, ROOT), mod))
+
+
+def test_entry_points_refuse_to_run_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    model = eight_schools_cp_model()
+    fam = pt.mean_field_t_variational_family(10, 40)
+    obj = pt.black_box_klvi(fam, model, 5, presampled=True)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        pt.validated_vi(model, fam, np.zeros(20), 10)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        pt.adagrad_optimize(10, obj, np.zeros(20))
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        pt.get_samples_and_log_weights(model, fam, np.zeros(20), 10)
+    assert pt.resolve_device('cpu') == torch.device('cpu')
+
+
+def test_cuda_resolution_applies_the_fp32_matmul_policy(monkeypatch):
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, 'allow_tf32', True)
+    monkeypatch.setattr(torch.backends.cudnn, 'allow_tf32', True)
+    before = torch.get_float32_matmul_precision()
+    try:
+        torch.set_float32_matmul_precision('high')
+        assert _device.resolve_device(None) == torch.device('cuda')
+        assert torch.backends.cuda.matmul.allow_tf32 is False
+        assert torch.backends.cudnn.allow_tf32 is False
+        assert torch.get_float32_matmul_precision() == 'highest'
+    finally:
+        torch.set_float32_matmul_precision(before)

@@ -1,0 +1,187 @@
+"""Variational families as bundles of plain tensor functions.
+
+PyTorch port of viabel_tpu/families.py:48-245 (the mean-field families).
+Variational parameters are flat vectors ``[location (d), log scale (d)]``.
+Sampling takes an explicit `torch.Generator` in place of a JAX key and
+draws on the generator's device; ``sample(g, p, n) == transform(p,
+base_sample(g, n))`` holds exactly, which is what presampled objectives and
+the tests' shared draws rely on.
+
+The full-rank families and `init_from_moments` come with a later slice.
+"""
+import math
+from functools import lru_cache
+from typing import Callable, NamedTuple, Optional
+
+import torch
+
+from .distributions import (diag_normal_logpdf, diag_student_t_logpdf,
+                            student_t_sample)
+
+__all__ = [
+    'VariationalFamily',
+    'NoClosedFormMomentError',
+    'mean_field_gaussian_variational_family',
+    'mean_field_t_variational_family',
+]
+
+_LOG_2PI = math.log(2.0 * math.pi)
+
+
+class NoClosedFormMomentError(ValueError):
+    """Raised by `pth_moment` when the requested moment has no finite
+    closed form (a Student-t with ``2 < df <= p``); callers branch on
+    exactly this type to the empirical-moment fallback
+    (viabel_tpu/families.py:48-58)."""
+
+
+def _memoized_constructor(build):
+    """Memoize a family constructor on normalized ``(int dim, float df)``
+    arguments, so reconstructing a family returns the same object and
+    identity-keyed caches (`bounds.family_moment_bounds`) hit
+    (viabel_tpu/families.py:61-86)."""
+    cached = lru_cache(maxsize=256)(build)
+
+    def constructor(dim, df=None):
+        if df is None:
+            return cached(int(dim))
+        return cached(int(dim), float(df))
+
+    constructor.__name__ = build.__name__
+    constructor.__qualname__ = build.__qualname__
+    constructor.__doc__ = build.__doc__
+    return constructor
+
+
+class VariationalFamily(NamedTuple):
+    """Bundle of functions defining a variational family
+    (viabel_tpu/families.py:102-143).
+
+    Fields
+    ------
+    sample : (generator, var_param, n_samples) -> (n_samples, dim)
+    entropy : (var_param) -> scalar
+    log_prob : (var_param, x) -> (n,) log q(x; var_param)
+    mean_and_cov : (var_param) -> (mean (dim,), cov (dim, dim))
+    pth_moment : (var_param, p) -> scalar bound on E||x - mean||^p, p in {2, 4}
+    var_param_dim, dim : int
+    name : str
+    base_sample : (generator, n_samples, dtype) -> parameter-free draws
+    transform : (var_param, draws) -> (n_samples, dim)
+    df : degrees of freedom of a Student-t family, else None
+    """
+    sample: Callable
+    entropy: Callable
+    log_prob: Callable
+    mean_and_cov: Callable
+    pth_moment: Callable
+    var_param_dim: int
+    dim: int
+    name: str
+    base_sample: Callable = None
+    transform: Callable = None
+    df: Optional[float] = None
+
+    def init_param(self, dtype=torch.float32, device='cpu'):
+        return torch.zeros(self.var_param_dim, dtype=dtype, device=device)
+
+
+@_memoized_constructor
+def mean_field_gaussian_variational_family(dim):
+    """Mean-field Gaussian, ``var_param = [mean (d), log_std (d)]``
+    (viabel_tpu/families.py:146-188)."""
+
+    def unpack(var_param):
+        return var_param[:dim], var_param[dim:]
+
+    def base_sample(generator, n_samples, dtype=torch.float32):
+        return torch.randn((n_samples, dim), generator=generator,
+                           dtype=dtype, device=generator.device)
+
+    def transform(var_param, z):
+        mean, log_std = unpack(var_param)
+        return mean + torch.exp(log_std) * z
+
+    def sample(generator, var_param, n_samples):
+        return transform(var_param,
+                         base_sample(generator, n_samples, var_param.dtype))
+
+    def entropy(var_param):
+        _, log_std = unpack(var_param)
+        return 0.5 * dim * (1.0 + _LOG_2PI) + torch.sum(log_std)
+
+    def log_prob(var_param, x):
+        mean, log_std = unpack(var_param)
+        return diag_normal_logpdf(x, mean, log_std)
+
+    def mean_and_cov(var_param):
+        mean, log_std = unpack(var_param)
+        return mean, torch.diag(torch.exp(2 * log_std))
+
+    def pth_moment(var_param, p):
+        if p not in (2, 4):
+            raise ValueError('only p = 2 or 4 supported')
+        _, log_std = unpack(var_param)
+        variances = torch.exp(2 * log_std)
+        if p == 2:
+            return torch.sum(variances)
+        return 2 * torch.sum(variances ** 2) + torch.sum(variances) ** 2
+
+    return VariationalFamily(sample, entropy, log_prob, mean_and_cov,
+                             pth_moment, 2 * dim, dim, 'mf_gaussian',
+                             base_sample, transform)
+
+
+@_memoized_constructor
+def mean_field_t_variational_family(dim, df):
+    """Mean-field Student-t, ``var_param = [mean (d), log_scale (d)]``
+    (viabel_tpu/families.py:191-245).  The entropy drops df-only
+    constants."""
+    if df <= 2:
+        raise ValueError('df must be greater than 2')
+
+    def unpack(var_param):
+        return var_param[:dim], var_param[dim:]
+
+    def base_sample(generator, n_samples, dtype=torch.float32):
+        return student_t_sample(generator, df, (n_samples, dim), dtype)
+
+    def transform(var_param, t):
+        mean, log_scale = unpack(var_param)
+        return mean + torch.exp(log_scale) * t
+
+    def sample(generator, var_param, n_samples):
+        return transform(var_param,
+                         base_sample(generator, n_samples, var_param.dtype))
+
+    def entropy(var_param):
+        _, log_scale = unpack(var_param)
+        return torch.sum(log_scale)
+
+    def log_prob(var_param, x):
+        mean, log_scale = unpack(var_param)
+        return diag_student_t_logpdf(x, df, mean, log_scale)
+
+    def mean_and_cov(var_param):
+        mean, log_scale = unpack(var_param)
+        return mean, df / (df - 2) * torch.diag(torch.exp(2 * log_scale))
+
+    def pth_moment(var_param, p):
+        if p not in (2, 4):
+            raise ValueError('only p = 2 or 4 supported')
+        if df <= p:
+            raise NoClosedFormMomentError(
+                'df must be greater than p = {} for a closed-form moment '
+                '(df = {}); callers fall back to empirical central '
+                'moments'.format(p, df))
+        _, log_scale = unpack(var_param)
+        scales = torch.exp(log_scale)
+        c = df / (df - 2)
+        if p == 2:
+            return c * torch.sum(scales ** 2)
+        return c ** 2 * (2 * (df - 1) / (df - 4) * torch.sum(scales ** 4)
+                         + torch.sum(scales ** 2) ** 2)
+
+    return VariationalFamily(sample, entropy, log_prob, mean_and_cov,
+                             pth_moment, 2 * dim, dim, 'mf_t',
+                             base_sample, transform, df)

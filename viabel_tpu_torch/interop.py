@@ -1,0 +1,42 @@
+"""Carry state from the JAX package into the port.
+
+The JAX package (viabel_tpu) hands out numpy-convertible arrays; these
+functions turn them into the port's tensors on a chosen device and dtype,
+so both packages can run on the same inputs: the flat variational
+parameter ``[mean, log_scale]``, the presampled optimizer draws, and base
+draws z for a bound pass.  Nothing here imports JAX: callers pass
+``np.asarray(jax_array)`` or the JAX array itself (anything ``np.asarray``
+accepts).
+"""
+import numpy as np
+import torch
+
+__all__ = ['var_param', 'presampled_draws', 'base_draws']
+
+
+def _to_tensor(array, ndim, what, device, dtype):
+    a = np.asarray(array)
+    if a.ndim != ndim or not np.issubdtype(a.dtype, np.floating):
+        raise ValueError('{} must be a {}-D floating array, got shape {} '
+                         'and dtype {}'.format(what, ndim, a.shape, a.dtype))
+    t = torch.from_numpy(np.array(a, order='C'))  # a writable copy
+    return t.to(device=device, dtype=dtype or t.dtype).contiguous()
+
+
+def var_param(array, device='cpu', dtype=None):
+    """A flat variational parameter (P,), e.g. ``[mean (d), log_scale (d)]``
+    of a mean-field family."""
+    return _to_tensor(array, 1, 'a variational parameter', device, dtype)
+
+
+def presampled_draws(array, device='cpu', dtype=None):
+    """A presampled objective's draws (n_iters, n_mc, d), as the JAX
+    package's ``objective.make_draws(key, n_iters)`` returns them; row i
+    feeds iteration i in both packages."""
+    return _to_tensor(array, 3, 'presampled draws', device, dtype)
+
+
+def base_draws(array, device='cpu', dtype=None):
+    """Base draws z (n, d) of a mean-field family, as
+    ``var_family.base_sample(key, n)`` returns them."""
+    return _to_tensor(array, 2, 'base draws', device, dtype)

@@ -1,0 +1,79 @@
+"""Variational objectives with autograd gradients.
+
+PyTorch port of viabel_tpu/objectives.py:50-125 (KLVI).  Each factory
+returns ``objective_and_grad(var_param, rng_or_draws) -> (value, grad)``;
+the gradient is a reparameterization gradient from `torch.autograd.grad`.
+With ``presampled=True`` the objective consumes pre-generated base draws
+instead of a generator, and carries ``make_draws`` to produce them in one
+batch for a whole optimizer run.
+
+CHIVI and the other objectives come with a later slice.
+"""
+import torch
+
+__all__ = ['black_box_klvi']
+
+
+def _attach_presampling(fn, var_family, n_samples):
+    """Mark `fn` as consuming pre-generated base draws and give it a
+    batched draw generator (viabel_tpu/objectives.py:50-73).
+
+    ``make_draws(generator, n_iters, dtype)`` returns one
+    ``(n_iters, n_samples, dim)`` block drawn in a single call on the
+    generator's device; row ``i`` feeds iteration ``i``.
+    """
+    fn.presampled = True
+
+    def make_draws(generator, n_iters, dtype=torch.float32):
+        flat = var_family.base_sample(generator, n_iters * n_samples, dtype)
+        return flat.reshape(n_iters, n_samples, -1)
+
+    fn.make_draws = make_draws
+    return fn
+
+
+def _sample_or_transform(var_family, n_samples, presampled, var_param,
+                         rng_or_draws):
+    """Samples for one objective evaluation
+    (viabel_tpu/objectives.py:105-125)."""
+    if presampled:
+        if (not isinstance(rng_or_draws, torch.Tensor)
+                or not rng_or_draws.is_floating_point()):
+            raise TypeError(
+                'this objective was built with presampled=True and consumes '
+                'pre-generated base draws (a floating-point tensor), but '
+                'received {}. Optimizers feed draws automatically '
+                '(obj.make_draws); for direct calls pass '
+                'var_family.base_sample(generator, n_samples), or rebuild '
+                'the objective with presampled=False to consume '
+                'generators'.format(type(rng_or_draws).__name__))
+        return var_family.transform(var_param, rng_or_draws)
+    return var_family.sample(rng_or_draws, var_param, n_samples)
+
+
+def black_box_klvi(var_family, log_density, n_samples, presampled=False):
+    """KLVI objective ``-ELBO`` with the closed-form entropy
+    (viabel_tpu/objectives.py:76-102).
+
+    `log_density` maps a batch ``(n, d)`` to ``(n,)`` log densities.
+    """
+
+    def objective(var_param, rng_or_draws):
+        samples = _sample_or_transform(var_family, n_samples, presampled,
+                                       var_param, rng_or_draws)
+        lower_bound = (var_family.entropy(var_param)
+                       + torch.mean(log_density(samples)))
+        return -lower_bound
+
+    def objective_and_grad(var_param, rng_or_draws):
+        with torch.enable_grad():
+            p = var_param.detach().requires_grad_(True)
+            value = objective(p, rng_or_draws)
+            grad, = torch.autograd.grad(value, p)
+        return value.detach(), grad
+
+    objective_and_grad.has_log_norm = False
+    objective_and_grad.objective = objective
+    if presampled:
+        _attach_presampling(objective_and_grad, var_family, n_samples)
+    return objective_and_grad

@@ -9,8 +9,12 @@ Tolerances: float64 holds the kernels' logic with rounding out of the way
 kernels' test tolerances, lw atol 2e-4 and statistics rtol 2e-5, plus an
 lw rtol of 2e-6 (a few float32 ulps) for the log-weights of magnitude
 above 100 that a heavy-tailed q produces.  The CUDA and PyTorch math
-libraries round exp/log/log1p differently in the last bits, and sums run
-in another order.
+libraries round exp/log/log1p/sincos differently in the last bits, and
+sums run in another order.  The regression density's float32 statistics
+get rtol 1e-4: its log-weights sit near -120, where a float32 ulp is
+7.6e-6, and the rescaled moments ``exp(lw - max)^alpha`` move by alpha
+times any difference in the max (a 1.5e-5 difference in the max moved
+them 2.5e-5 on the card).
 """
 import numpy as np
 import pytest
@@ -25,6 +29,7 @@ pytestmark = pytest.mark.cuda
 
 TOL = {torch.float64: dict(lw_atol=1e-10, lw_rtol=1e-10, rtol=1e-10),
        torch.float32: dict(lw_atol=2e-4, lw_rtol=2e-6, rtol=2e-5)}
+REGRESSION_STATS_RTOL = {torch.float64: 1e-10, torch.float32: 1e-4}
 
 
 @pytest.fixture(scope='module')
@@ -124,3 +129,106 @@ def test_wrappers_reject_bad_inputs(cuda):
     with pytest.raises(ValueError):
         ops.transform_score_partials(z, mean.cpu(), log_scale,
                                      model.kernel, model.kernel_data, 40.0)
+
+
+# --------------------------------------------------------------------------
+# the regression density, K2 and the Philox stream
+# --------------------------------------------------------------------------
+
+def _regression(robust):
+    from viabel_tpu_torch.models import (data_generator_linear,
+                                         linear_regression_model,
+                                         robust_regression_model)
+    if robust:
+        return robust_regression_model()
+    data = data_generator_linear(N=100, D=10, seed=42)
+    return linear_regression_model(data['X'], data['Y'])
+
+
+def _fit(model, dtype, device, widen=1.5):
+    mean = torch.as_tensor(model.true_mean, dtype=dtype, device=device)
+    log_scale = torch.as_tensor(0.5 * np.log(widen * np.diag(model.true_cov)),
+                                dtype=dtype, device=device)
+    return mean, log_scale
+
+
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
+@pytest.mark.parametrize('n', [1, 2048 * 3 + 17, 200_003])
+@pytest.mark.parametrize('robust,df', [(False, None), (True, 40.0)])
+def test_transform_score_partials_regression_matches_plain(cuda, dtype, n,
+                                                           robust, df):
+    model = _regression(robust)
+    mean, log_scale = _fit(model, dtype, cuda)
+    g = torch.Generator(device=cuda).manual_seed(n)
+    z = torch.randn((n, model.dim), generator=g, dtype=dtype, device=cuda)
+    lw, parts = ops.transform_score_partials(
+        z, mean, log_scale, model.kernel, model.kernel_data, df)
+    lw_p, parts_p = ops.transform_score_partials_plain(
+        z, mean, log_scale, model.kernel, model.kernel_data, df)
+    torch.cuda.synchronize()
+    tol = TOL[dtype]
+    np.testing.assert_allclose(lw.cpu().numpy(), lw_p.cpu().numpy(),
+                               atol=tol['lw_atol'], rtol=tol['lw_rtol'])
+    _assert_stats_close(ops.combine_partials(parts),
+                        ops.combine_partials_plain(parts_p),
+                        REGRESSION_STATS_RTOL[dtype])
+
+
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
+@pytest.mark.parametrize('n', [1, 2048 * 3 + 17, 200_003])
+@pytest.mark.parametrize('model_name', ['linear', 'robust', 'eight_schools'])
+def test_gaussian_sample_score_partials_matches_plain(cuda, dtype, n,
+                                                      model_name):
+    from viabel_tpu_torch.ops import gaussian_lw as gops
+    model = (eight_schools_cp_model() if model_name == 'eight_schools'
+             else _regression(model_name == 'robust'))
+    mean, log_std = _fit(model, dtype, cuda, widen=1.0)
+    seed, offset = 2 ** 63 + n, 7
+    before = gops.launches['gaussian_sample_score_partials']
+    lw, parts = gops.gaussian_sample_score_partials(
+        mean, log_std, n, seed, offset, model.kernel, model.kernel_data)
+    assert gops.launches['gaussian_sample_score_partials'] == before + 1
+    lw_p, parts_p = gops.gaussian_sample_score_partials_plain(
+        mean, log_std, n, seed, offset, model.kernel, model.kernel_data)
+    torch.cuda.synchronize()
+    tol = TOL[dtype]
+    np.testing.assert_allclose(lw.cpu().numpy(), lw_p.cpu().numpy(),
+                               atol=tol['lw_atol'], rtol=tol['lw_rtol'])
+    rtol = (tol['rtol'] if model_name == 'eight_schools'
+            else REGRESSION_STATS_RTOL[dtype])
+    _assert_stats_close(ops.combine_partials(parts),
+                        ops.combine_partials_plain(parts_p), rtol)
+
+
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
+@pytest.mark.parametrize('n,d,start', [(1, 1, 0), (1000, 10, 2 ** 32 - 500),
+                                       (300_001, 13, 7)])
+def test_philox_normal_matches_plain(cuda, dtype, n, d, start):
+    from viabel_tpu_torch.ops import gaussian_lw as gops
+    from viabel_tpu_torch.ops.philox import philox_normal_plain
+    z = gops.philox_normal(n, d, 99, 3, start, dtype, cuda)
+    z_p = philox_normal_plain(n, d, 99, 3, start, dtype, cuda)
+    torch.cuda.synchronize()
+    tol = 1e-12 if dtype == torch.float64 else 2e-6  # last-bit log/sincos
+    np.testing.assert_allclose(z.cpu().numpy(), z_p.cpu().numpy(), rtol=tol,
+                               atol=tol)
+
+
+def test_philox_bits_known_answers_and_plain(cuda):
+    from viabel_tpu_torch.ops import gaussian_lw as gops
+    from viabel_tpu_torch.ops.philox import philox4x32
+    kat = [((0, 0, 0, 0), 0, (0x6627e8d5, 0xe169c58d, 0xbc57ac4c, 0x9b00dbd8)),
+           ((0xFFFFFFFF,) * 4, 2 ** 64 - 1,
+            (0x408f276d, 0x41c83b0e, 0xa20bc7c6, 0x6d5451fd)),
+           ((0x243f6a88, 0x85a308d3, 0x13198a2e, 0x03707344),
+            0x299f31d0a4093822,
+            (0xd16cfe09, 0x94fdcceb, 0x5001e420, 0x24126ea1))]
+    for counter, seed, want in kat:
+        got = gops.philox_bits(torch.tensor([counter], device=cuda), seed)
+        assert tuple(got[0].tolist()) == want
+    c = torch.randint(0, 2 ** 32, (100_000, 4), dtype=torch.int64,
+                      device=cuda)
+    seed = 0xDEADBEEF12345678
+    plain = torch.stack(philox4x32(c.unbind(1), (seed & 0xFFFFFFFF,
+                                                 seed >> 32)), dim=1)
+    assert torch.equal(gops.philox_bits(c, seed), plain)

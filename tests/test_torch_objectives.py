@@ -56,3 +56,27 @@ def test_unpresampled_objective_draws_from_generator():
     v2, g2 = pre(vp, z)
     assert torch.equal(v1, v2) and torch.equal(g1, g2)
     assert not vp.requires_grad  # the caller's parameter is untouched
+
+
+def test_make_draws_range_reads_the_generator_as_a_key():
+    """Row i is the same whatever range draws it and the generator is not
+    advanced: the Gaussian family's rows are Philox rows of the initial
+    seed; other families draw from a fresh generator of it, from 0 only."""
+    from viabel_tpu_torch.ops.philox import philox_normal_plain
+    gauss = pt.black_box_klvi(pt.mean_field_gaussian_variational_family(3),
+                              tcp(), 4, presampled=True)
+    g = torch.Generator().manual_seed(9)
+    block = gauss.make_draws_range(g, 0, 6, torch.float64)
+    assert block.shape == (6, 4, 3)
+    assert torch.equal(gauss.make_draws_range(g, 2, 3, torch.float64),
+                       block[2:5])
+    np.testing.assert_array_equal(
+        block.reshape(-1, 3).numpy(),
+        philox_normal_plain(24, 3, 9, dtype=torch.float64).numpy())
+    t_obj = pt.black_box_klvi(pt.mean_field_t_variational_family(3, 40),
+                              tcp(), 4, presampled=True)
+    want = t_obj.make_draws(torch.Generator().manual_seed(9), 5,
+                            torch.float64)
+    assert torch.equal(t_obj.make_draws_range(g, 0, 5, torch.float64), want)
+    with pytest.raises(NotImplementedError):
+        t_obj.make_draws_range(g, 1, 5, torch.float64)

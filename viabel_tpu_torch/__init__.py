@@ -4,10 +4,15 @@ The PyTorch port of the JAX package `viabel_tpu`, for an NVIDIA H100.  It
 keeps the JAX package's module names, so each function has a counterpart
 of the same name there, and it imports neither JAX nor `viabel_tpu`.
 
-This slice carries the eight-schools validated-VI pipeline: the mean-field
-families, presampled KLVI, windowed adagrad, the bounds, PSIS, and the
-fused pipeline `validated_vi`.  The bound pass runs on hand-written CUDA
-kernels (``csrc/lw_stats.cu``, wrapped in `ops.lw_stats`).
+It carries two slices: the eight-schools validated-VI pipeline (the
+mean-field families, presampled KLVI, windowed adagrad, the bounds, PSIS,
+the fused pipeline `validated_vi`), and R-hat-gated iterate averaging on
+Bayesian regression (`diagnostics`, the RMSProp/Adam IA optimizers, the
+regression models, `improve_with_psis`).  The bound pass runs on
+hand-written CUDA kernels: K1, K3 and the combine in ``csrc/lw_stats.cu``
+(`ops.lw_stats`), and K2, which draws a Gaussian q's samples in-kernel
+from a Philox stream, with ``philox_normal`` in ``csrc/gaussian_lw.cu``
+(`ops.gaussian_lw`).
 
 Entry points run on the CUDA card unless the caller passes
 ``device='cpu'``; without a card and without that argument they raise.
@@ -17,12 +22,20 @@ from ._device import fp32_matmul_policy, resolve_device
 from .bounds import (all_bounds, divergence_bound, error_bounds,
                      family_moment_bounds, log_weight_stats,
                      wasserstein_bounds)
-from .experiments import get_samples_and_log_weights
+from .diagnostics import (compute_posterior_moments, compute_R_hat,
+                          compute_R_hat_adaptive, compute_R_hat_halfway,
+                          effective_sample_size,
+                          stochastic_iterate_averaging)
+from .experiments import (check_accuracy, check_approx_accuracy,
+                          get_samples_and_log_weights, improve_with_psis,
+                          print_bounds, psis_correction)
 from .families import (NoClosedFormMomentError, VariationalFamily,
                        mean_field_gaussian_variational_family,
                        mean_field_t_variational_family)
 from .objectives import black_box_klvi
-from .optimizers import adagrad_optimize, learning_rate_schedule
+from .optimizers import (adagrad_optimize, adam_IA_optimize,
+                         adam_IA_optimize_with_rhat, learning_rate_schedule,
+                         rmsprop_IA_optimize, rmsprop_IA_optimize_with_rhat)
 from .pipeline import DivergedRunWarning, validated_vi
 from .psis import psislw, weighted_moments
 
@@ -36,7 +49,13 @@ __all__ = [
     'mean_field_t_variational_family',
     'black_box_klvi',
     'learning_rate_schedule', 'adagrad_optimize',
-    'get_samples_and_log_weights',
+    'rmsprop_IA_optimize_with_rhat', 'adam_IA_optimize_with_rhat',
+    'rmsprop_IA_optimize', 'adam_IA_optimize',
+    'compute_R_hat', 'compute_R_hat_adaptive', 'compute_R_hat_halfway',
+    'effective_sample_size', 'stochastic_iterate_averaging',
+    'compute_posterior_moments',
+    'get_samples_and_log_weights', 'psis_correction', 'improve_with_psis',
+    'check_accuracy', 'check_approx_accuracy', 'print_bounds',
     'psislw', 'weighted_moments',
     'validated_vi', 'DivergedRunWarning',
     'resolve_device', 'fp32_matmul_policy',

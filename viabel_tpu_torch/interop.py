@@ -3,15 +3,16 @@
 The JAX package (viabel_tpu) hands out numpy-convertible arrays; these
 functions turn them into the port's tensors on a chosen device and dtype,
 so both packages can run on the same inputs: the flat variational
-parameter ``[mean, log_scale]``, the presampled optimizer draws, and base
-draws z for a bound pass.  Nothing here imports JAX: callers pass
-``np.asarray(jax_array)`` or the JAX array itself (anything ``np.asarray``
-accepts).
+parameter ``[mean, log_scale]``, the presampled optimizer draws (one
+block, or one per IA chain), and base draws z for a bound pass.  Model
+data (the regression models' x and y) passes as the numpy arrays it is.
+Nothing here imports JAX: callers pass ``np.asarray(jax_array)`` or the
+JAX array itself (anything ``np.asarray`` accepts).
 """
 import numpy as np
 import torch
 
-__all__ = ['var_param', 'presampled_draws', 'base_draws']
+__all__ = ['var_param', 'presampled_draws', 'chain_draws', 'base_draws']
 
 
 def _to_tensor(array, ndim, what, device, dtype):
@@ -34,6 +35,13 @@ def presampled_draws(array, device='cpu', dtype=None):
     package's ``objective.make_draws(key, n_iters)`` returns them; row i
     feeds iteration i in both packages."""
     return _to_tensor(array, 3, 'presampled draws', device, dtype)
+
+
+def chain_draws(array, device='cpu', dtype=None):
+    """The IA optimizers' per-chain presampled draws (n_chains, n_iters,
+    n_mc, d): chain c's block is the JAX package's
+    ``objective.make_draws_range(chain_key_c, 0, n_iters)``."""
+    return _to_tensor(array, 4, 'per-chain presampled draws', device, dtype)
 
 
 def base_draws(array, device='cpu', dtype=None):

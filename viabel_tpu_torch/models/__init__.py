@@ -3,6 +3,9 @@ from .base import Model
 from .eight_schools import (EIGHT_SCHOOLS_SIGMA, EIGHT_SCHOOLS_Y,
                             eight_schools_cp_model, eight_schools_ncp_model,
                             eight_schools_ncp_to_cp)
+from .regression import (data_generator_linear, linear_regression_model,
+                         robust_regression_model,
+                         robust_regression_notebook_data)
 
 __all__ = [
     'Model',
@@ -11,4 +14,8 @@ __all__ = [
     'eight_schools_ncp_to_cp',
     'EIGHT_SCHOOLS_Y',
     'EIGHT_SCHOOLS_SIGMA',
+    'robust_regression_model',
+    'robust_regression_notebook_data',
+    'linear_regression_model',
+    'data_generator_linear',
 ]

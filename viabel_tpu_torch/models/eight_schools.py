@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from ..distributions import normal_logpdf
-from .base import Model
+from .base import Model, _DataCache
 
 __all__ = [
     'EIGHT_SCHOOLS_Y',
@@ -49,28 +49,6 @@ def _half_cauchy_logpdf_with_jacobian(log_tau, scale):
     tau = torch.exp(log_tau)
     cauchy = -torch.log(math.pi * scale * (1.0 + (tau / scale) ** 2))
     return cauchy + log_tau
-
-
-class _DataCache:
-    """The data as tensors of the evaluating tensor's device and dtype,
-    converted once per (device, dtype) rather than on every call."""
-
-    def __init__(self, *arrays):
-        self._host = [torch.as_tensor(np.asarray(a, dtype=np.float64))
-                      for a in arrays]
-        self._cache = {}
-
-    def like(self, x):
-        key = (x.device, x.dtype)
-        out = self._cache.get(key)
-        if out is None:
-            out = self._cache[key] = tuple(t.to(x.device, x.dtype)
-                                           for t in self._host)
-        return out
-
-    @property
-    def host(self):
-        return tuple(self._host)
 
 
 def _data(y, sigma):

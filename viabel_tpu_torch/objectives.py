@@ -5,22 +5,37 @@ returns ``objective_and_grad(var_param, rng_or_draws) -> (value, grad)``;
 the gradient is a reparameterization gradient from `torch.autograd.grad`.
 With ``presampled=True`` the objective consumes pre-generated base draws
 instead of a generator, and carries ``make_draws`` to produce them in one
-batch for a whole optimizer run.
+batch for a whole optimizer run, and ``make_draws_range`` to produce any
+range of iterations' draws of one stream (the IA optimizers' per-chain
+blocks).
 
 CHIVI and the other objectives come with a later slice.
 """
 import torch
 
+from .ops.gaussian_lw import philox_normal
+
 __all__ = ['black_box_klvi']
 
 
 def _attach_presampling(fn, var_family, n_samples):
-    """Mark `fn` as consuming pre-generated base draws and give it a
-    batched draw generator (viabel_tpu/objectives.py:50-73).
+    """Mark `fn` as consuming pre-generated base draws and give it batched
+    draw generators (viabel_tpu/objectives.py:50-73).
 
     ``make_draws(generator, n_iters, dtype)`` returns one
     ``(n_iters, n_samples, dim)`` block drawn in a single call on the
     generator's device; row ``i`` feeds iteration ``i``.
+
+    ``make_draws_range(generator, start, length, dtype)`` returns the rows
+    of iterations ``[start, start + length)`` of the stream that the
+    generator's initial seed names: it reads the generator as a key and
+    does not advance it, and row ``i`` is the same whatever range it is
+    drawn in, as the JAX package's ``fold_in(key, i)`` rows are.  The
+    Gaussian family's rows come from the Philox stream
+    (`ops.gaussian_lw.philox_normal`; key the initial seed, offset 0, row
+    i's draw j is sample ``i * n_samples + j``), so the CPU and the card
+    draw the same rows.  Other families draw from a fresh generator of
+    that seed, and only from ``start = 0``.
     """
     fn.presampled = True
 
@@ -28,7 +43,22 @@ def _attach_presampling(fn, var_family, n_samples):
         flat = var_family.base_sample(generator, n_iters * n_samples, dtype)
         return flat.reshape(n_iters, n_samples, -1)
 
+    def make_draws_range(generator, start, length, dtype=torch.float32):
+        seed = generator.initial_seed()
+        if var_family.name == 'mf_gaussian':
+            flat = philox_normal(length * n_samples, var_family.dim, seed,
+                                 0, start * n_samples, dtype,
+                                 generator.device)
+            return flat.reshape(length, n_samples, -1)
+        if start != 0:
+            raise NotImplementedError(
+                'draws from iteration {} on need a counter-based stream, '
+                'which only the Gaussian family has'.format(start))
+        fresh = torch.Generator(device=generator.device).manual_seed(seed)
+        return make_draws(fresh, length, dtype)
+
     fn.make_draws = make_draws
+    fn.make_draws_range = make_draws_range
     return fn
 
 

@@ -1,11 +1,12 @@
 """Build the CUDA sources under ``csrc/`` and load them through ctypes.
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own
-with ``nvcc`` into ``_build/<name>-<hash>.so``; the hash covers the source
-and the flags, so an edited source rebuilds and an unchanged one loads the
-cached library.  Nothing is built at import: the first kernel launch
-builds what it needs, and `build_all` builds every source at once, one
-``nvcc`` process each, all started together.
+with ``nvcc`` into ``_build/<name>-<hash>.so``; the hash covers the source,
+every header under ``csrc/`` and the flags, so an edited source or header
+rebuilds and an unchanged one loads the cached library.  Nothing is built
+at import: the first kernel launch builds what it needs, and `build_all`
+builds every source at once, one ``nvcc`` process each, all started
+together.
 """
 import ctypes
 import hashlib
@@ -19,7 +20,7 @@ __all__ = ['load', 'build_all', 'SOURCES']
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, 'csrc')
 _BUILD = os.path.join(_PKG, '_build')
-SOURCES = ('lw_stats',)
+SOURCES = ('lw_stats', 'gaussian_lw')
 _FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
           '-shared', '-Xcompiler', '-fPIC', '-Xptxas=-v')
 
@@ -39,8 +40,11 @@ def _nvcc():
 
 def _target(name):
     src = os.path.join(_CSRC, name + '.cu')
-    with open(src, 'rb') as f:
-        digest = hashlib.sha256(f.read() + ' '.join(_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(_CSRC) if f.endswith('.cuh'))
+    digest = hashlib.sha256(' '.join(_FLAGS).encode())
+    for path in [src] + [os.path.join(_CSRC, h) for h in headers]:
+        with open(path, 'rb') as f:
+            digest.update(f.read())
     return src, os.path.join(_BUILD, '{}-{}.so'.format(
         name, digest.hexdigest()[:16]))
 

@@ -4,10 +4,13 @@ Three CUDA kernels from ``csrc/lw_stats.cu`` (see the note at its top):
 
 * `transform_score_partials` (K1) replaces the TPU kernel
   ``fused_location_scale_lw_stats`` (viabel_tpu/ops/sample_score.py:333-385
-  at commit 2e6dc2c^): from base draws z (n, d) of a mean-field family it
-  forms ``x = mean + exp(log_scale) z`` and ``lw = log p(x) - log q(x)``
-  with log q from the base density of z, writes lw, and writes one row of
-  partial statistics per chunk of `CHUNK` samples.
+  at commit 2e6dc2c^): from base draws z (n, d), d <= `MAX_DIM`, of a
+  mean-field family it forms ``x = mean + exp(log_scale) z`` and
+  ``lw = log p(x) - log q(x)`` with log q from the base density of z,
+  writes lw, and writes one row of partial statistics per chunk of `CHUNK`
+  samples.  log p is a model's CUDA device function, named by its
+  ``Model.kernel`` tag: ``'eight_schools_cp'`` or ``'regression'``
+  (`KERNEL_MODELS`); K2 (`ops.gaussian_lw`) scores with the same ones.
 * `lw_partials` (K3) replaces ``streaming_lw_stats``
   (viabel_tpu/ops/sample_score.py:108-142 at 2e6dc2c^): the same partials
   over an existing lw vector.
@@ -17,11 +20,13 @@ Three CUDA kernels from ``csrc/lw_stats.cu`` (see the note at its top):
   ``[log_rescale, mean_rescaled_alpha, std_rescaled_alpha, mean_lw,
   std_lw]`` (population std, as ``jnp.std``).
 
-Bound on an H100: K1 and K3 move bytes (K1 reads 40 B of z and writes 4 B
-of lw a sample in f32; its ~230 operations a sample need about a quarter
-of that time at the card's float32 rate).  Each reads its input once with warp-contiguous
-addresses, keeps the chunk's log-weights in registers between score and
-statistics, and writes lw plus one 6-value row per 2048 samples.
+Bound on an H100: K3 moves bytes, and so does K1 on eight-schools (it
+reads 40 B of z and writes 4 B of lw a sample in f32; its ~230 operations
+a sample need about a quarter of that time at the card's float32 rate); on
+the regression density K1 is bound by operations (~2 N d a sample).  Each
+reads its input once with warp-contiguous addresses, keeps the chunk's
+log-weights in registers between score and statistics, and writes lw plus
+one 6-value row per 2048 samples.
 
 Partials row: ``[count, m, mean_e, M2_e, mean_lw, M2_lw]`` with m the
 chunk max, ``e = exp(lw - m)^alpha`` and M2 the sum of squared
@@ -36,24 +41,28 @@ CUDA tensor it launches the kernel (building it on first use) or raises.
 """
 import ctypes
 import functools
+import math
 
 import torch
 
 from ..distributions import _LOG_2PI, t_lognorm
 from ..models.eight_schools import cp_log_density
+from ..models.regression import regression_log_density
 from . import _build
+from .limits import MAX_DIM, MAX_STAGED_BYTES, staged_bytes
 
 __all__ = [
-    'CHUNK', 'launches', 'reset_launches',
+    'CHUNK', 'MAX_DIM', 'KERNEL_MODELS', 'launches', 'reset_launches',
     'transform_score_partials', 'lw_partials', 'combine_partials',
     'transform_score_partials_plain', 'lw_partials_plain',
     'combine_partials_plain', 'lw_stats', 'transform_score_stats',
+    'check_kernel_model', 'model_log_density_plain',
 ]
 
-CHUNK = 2048          # samples per partials row; equals CHUNK in the .cu
+CHUNK = 2048          # samples per partials row; equals CHUNK in the .cuh
 NPART = 6
-DIM = 10              # the CUDA model density is eight-schools CP, J = 8
-_PLAIN_DENSITIES = {'eight_schools_cp': cp_log_density}
+KERNEL_MODELS = ('eight_schools_cp', 'regression')
+_CP_SCHOOLS = 8       # the CUDA eight-schools density unrolls J = 8
 
 launches = {'transform_score_partials': 0, 'lw_partials': 0,
             'combine_partials': 0}
@@ -64,11 +73,25 @@ def reset_launches():
         launches[k] = 0
 
 
+class ModelSpec(ctypes.Structure):
+    """ctypes mirror of ``bound_pass::ModelSpec`` (csrc/bound_pass.cuh)."""
+    _fields_ = [('kind', ctypes.c_int), ('n_rows', ctypes.c_int),
+                ('student_t', ctypes.c_int), ('pad', ctypes.c_int),
+                ('a', ctypes.c_void_p), ('b', ctypes.c_void_p),
+                ('df', ctypes.c_double), ('half_df1', ctypes.c_double),
+                ('lik_lognorm', ctypes.c_double),
+                ('noise_scale', ctypes.c_double),
+                ('log_noise', ctypes.c_double),
+                ('prior_std', ctypes.c_double),
+                ('log_prior', ctypes.c_double)]
+
+
 _ptr = ctypes.c_void_p
 _SIGNATURES = {
-    'transform_score_partials': [_ptr] * 5 + [
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_double, ctypes.c_double,
-        ctypes.c_double, _ptr, _ptr, _ptr],
+    'transform_score_partials': [_ptr] * 3 + [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_double,
+        ctypes.c_double, ctypes.c_double, ctypes.POINTER(ModelSpec), _ptr,
+        _ptr],
     'lw_partials': [_ptr, ctypes.c_longlong, ctypes.c_double, _ptr, _ptr],
     'combine_partials': [_ptr, ctypes.c_longlong, ctypes.c_double, _ptr,
                          _ptr],
@@ -85,25 +108,40 @@ def _lib():
             fn = getattr(lib, '{}_{}'.format(name, suffix))
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-    for fn in (lib.lw_stats_chunk, lib.lw_stats_dim):
-        fn.argtypes, fn.restype = [], ctypes.c_int
-    if (lib.lw_stats_chunk(), lib.lw_stats_dim()) != (CHUNK, DIM):
-        raise RuntimeError('csrc/lw_stats.cu and ops/lw_stats.py disagree '
-                           'on CHUNK or DIM')
+    check_layout(lib, 'lw_stats')
     return lib
 
 
-def _launch(name, device, dtype, *args):
-    """Launch on `device`'s current stream; raise if CUDA refused it."""
-    fn = getattr(_lib(), '{}_{}'.format(name, _SUFFIX[dtype]))
+def check_layout(lib, name):
+    """Raise unless the library built from ``csrc/<name>.cu`` agrees with
+    this module on CHUNK, MAX_DIM and the ModelSpec layout."""
+    fns = (lib.bound_pass_chunk, lib.bound_pass_max_dim,
+           lib.bound_pass_model_spec_size)
+    for fn in fns:
+        fn.argtypes, fn.restype = [], ctypes.c_int
+    got = tuple(fn() for fn in fns)
+    if got != (CHUNK, MAX_DIM, ctypes.sizeof(ModelSpec)):
+        raise RuntimeError('csrc/{}.cu and ops/lw_stats.py disagree on '
+                           'CHUNK, MAX_DIM or the ModelSpec layout: {}'
+                           .format(name, got))
+
+
+def launch(lib, counts, name, device, dtype, *args):
+    """Launch ``<name>_<f32|f64>`` of `lib` on `device`'s current stream,
+    raise if CUDA refused it, and count it in ``counts[name]``."""
+    fn = getattr(lib, '{}_{}'.format(name, _SUFFIX[dtype]))
     with torch.cuda.device(device):
         rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError('{} launch failed: CUDA error {}'.format(name, rc))
-    launches[name] += 1
+    counts[name] += 1
 
 
-def _check(name, t, dtype, device, shape=None):
+def _launch(name, device, dtype, *args):
+    launch(_lib(), launches, name, device, dtype, *args)
+
+
+def check_tensor(name, t, dtype, device, shape=None):
     if not isinstance(t, torch.Tensor):
         raise TypeError('{} must be a tensor'.format(name))
     if t.dtype not in _SUFFIX or (dtype is not None and t.dtype != dtype):
@@ -122,7 +160,7 @@ def _check(name, t, dtype, device, shape=None):
         raise ValueError('{} must be contiguous'.format(name))
 
 
-def _n_chunks(n):
+def n_chunks(n):
     return -(-n // CHUNK)
 
 
@@ -198,13 +236,73 @@ def _base_logpdf(z, df):
         t_lognorm(df) - 0.5 * (df + 1.0) * torch.log1p(z * z / df), dim=-1)
 
 
+def model_log_density_plain(kernel, kernel_data, x):
+    """The plain version of the CUDA log density named `kernel` at the rows
+    of ``x`` (n, d)."""
+    if kernel == 'eight_schools_cp':
+        y, sigma = (t.to(x.device, x.dtype) for t in kernel_data)
+        return cp_log_density(x, y, sigma)
+    xd, y, df, noise_scale, prior_std = kernel_data
+    return regression_log_density(x, xd.to(x.device, x.dtype),
+                                  y.to(x.device, x.dtype), df, noise_scale,
+                                  prior_std)
+
+
+def check_kernel_model(kernel, kernel_data, d, itemsize):
+    """Raise unless the CUDA density named `kernel` takes `kernel_data` at
+    dimension `d`, and the score kernels can stage it in shared memory."""
+    if kernel not in KERNEL_MODELS:
+        raise ValueError('no kernel log density named {!r}'.format(kernel))
+    if not 1 <= d <= MAX_DIM:
+        raise ValueError('the score kernels take 1 <= d <= {}, got {}'
+                         .format(MAX_DIM, d))
+    if kernel == 'eight_schools_cp':
+        if (d != 2 + _CP_SCHOOLS or [tuple(t.shape) for t in kernel_data]
+                != [(_CP_SCHOOLS,)] * 2):
+            raise ValueError('{} needs d = {} and y and sigma of {} schools'
+                             .format(kernel, 2 + _CP_SCHOOLS, _CP_SCHOOLS))
+        staged = 2 * _CP_SCHOOLS
+    else:
+        xd, y = kernel_data[:2]
+        if xd.dim() != 2 or xd.shape[1] != d or tuple(y.shape) != (
+                xd.shape[0],):
+            raise ValueError('{} needs x (N, {}) and y (N,), got {} and {}'
+                             .format(kernel, d, tuple(xd.shape),
+                                     tuple(y.shape)))
+        staged = xd.shape[0] * (d + 1)
+    nbytes = staged_bytes(staged, itemsize)
+    if nbytes > MAX_STAGED_BYTES:
+        raise ValueError('{} data of {} bytes exceeds the {} bytes of shared '
+                         'memory the score kernels stage'.format(
+                             kernel, nbytes, MAX_STAGED_BYTES))
+
+
+def model_spec(kernel, kernel_data, device, dtype):
+    """The `ModelSpec` of a launch and the device tensors it points to
+    (the caller holds them until the launch is enqueued)."""
+    if kernel == 'eight_schools_cp':
+        a, b = (t.to(device, dtype).contiguous() for t in kernel_data)
+        spec = ModelSpec(kind=0, n_rows=a.shape[0], a=a.data_ptr(),
+                         b=b.data_ptr())
+        return spec, (a, b)
+    xd, y, df, noise_scale, prior_std = kernel_data
+    a, b = (t.to(device, dtype).contiguous() for t in (xd, y))
+    spec = ModelSpec(
+        kind=1, n_rows=a.shape[0], student_t=int(df is not None),
+        a=a.data_ptr(), b=b.data_ptr(), df=float(df or 0.0),
+        half_df1=0.5 * (df + 1.0) if df is not None else 0.0,
+        lik_lognorm=t_lognorm(df) if df is not None else 0.0,
+        noise_scale=noise_scale, log_noise=math.log(noise_scale),
+        prior_std=prior_std, log_prior=math.log(prior_std))
+    return spec, (a, b)
+
+
 def transform_score_partials_plain(z, mean, log_scale, kernel, kernel_data,
                                    df=None, alpha=2.0):
     """Plain version of K1: ``(lw, partials)``."""
     x = mean + torch.exp(log_scale) * z
     logq = _base_logpdf(z, df) - torch.sum(log_scale)
-    y, sigma = (t.to(z.device, z.dtype) for t in kernel_data)
-    lw = _PLAIN_DENSITIES[kernel](x, y, sigma) - logq
+    lw = model_log_density_plain(kernel, kernel_data, x) - logq
     return lw, lw_partials_plain(lw, alpha)
 
 
@@ -219,43 +317,39 @@ def transform_score_partials(z, mean, log_scale, kernel, kernel_data,
     the model density named `kernel` (its data `kernel_data`).  ``df`` None
     means a standard normal base (the Gaussian family), else Student-t(df).
     """
-    if kernel not in _PLAIN_DENSITIES:
-        raise ValueError('no kernel log density named {!r}'.format(kernel))
-    _check('z', z, None, None)
-    if z.dim() != 2 or z.shape[0] == 0 or z.shape[1] != DIM:
-        raise ValueError('z must be (n > 0, {}), got {}'.format(
-            DIM, tuple(z.shape)))
-    n = z.shape[0]
-    _check('mean', mean, z.dtype, z.device, (DIM,))
-    _check('log_scale', log_scale, z.dtype, z.device, (DIM,))
-    if [tuple(t.shape) for t in kernel_data] != [(DIM - 2,)] * 2:
-        raise ValueError('{} needs y and sigma of {} schools'.format(
-            kernel, DIM - 2))
+    check_tensor('z', z, None, None)
+    if z.dim() != 2 or z.shape[0] == 0:
+        raise ValueError('z must be (n > 0, d), got {}'.format(
+            tuple(z.shape)))
+    n, d = z.shape
+    check_kernel_model(kernel, kernel_data, d, z.element_size())
+    check_tensor('mean', mean, z.dtype, z.device, (d,))
+    check_tensor('log_scale', log_scale, z.dtype, z.device, (d,))
     if z.device.type == 'cpu':
         return transform_score_partials_plain(z, mean, log_scale, kernel,
                                               kernel_data, df, alpha)
-    y, sigma = (t.to(z.device, z.dtype).contiguous() for t in kernel_data)
+    spec, _data = model_spec(kernel, kernel_data, z.device, z.dtype)
     lw = torch.empty((n,), dtype=z.dtype, device=z.device)
-    partials = torch.empty((_n_chunks(n), NPART), dtype=z.dtype,
+    partials = torch.empty((n_chunks(n), NPART), dtype=z.dtype,
                            device=z.device)
     base_kind = 0 if df is None else 1  # standard normal / Student-t(df)
     _launch('transform_score_partials', z.device, z.dtype, z.data_ptr(),
-            mean.data_ptr(), log_scale.data_ptr(), y.data_ptr(),
-            sigma.data_ptr(), n, base_kind, float(df or 0.0),
-            t_lognorm(df) if df is not None else 0.0, float(alpha),
-            lw.data_ptr(), partials.data_ptr())
+            mean.data_ptr(), log_scale.data_ptr(), n, d, base_kind,
+            float(df or 0.0), t_lognorm(df) if df is not None else 0.0,
+            float(alpha), ctypes.byref(spec), lw.data_ptr(),
+            partials.data_ptr())
     return lw, partials
 
 
 def lw_partials(lw, alpha=2.0):
     """K3: partials ``(ceil(n / CHUNK), 6)`` of a log-weight vector."""
-    _check('lw', lw, None, None)
+    check_tensor('lw', lw, None, None)
     if lw.dim() != 1 or lw.shape[0] == 0:
         raise ValueError('lw must be 1-D and non-empty')
     if lw.device.type == 'cpu':
         return lw_partials_plain(lw, alpha)
     n = lw.shape[0]
-    partials = torch.empty((_n_chunks(n), NPART), dtype=lw.dtype,
+    partials = torch.empty((n_chunks(n), NPART), dtype=lw.dtype,
                            device=lw.device)
     _launch('lw_partials', lw.device, lw.dtype, lw.data_ptr(), n,
             float(alpha), partials.data_ptr())
@@ -264,7 +358,7 @@ def lw_partials(lw, alpha=2.0):
 
 def combine_partials(partials, alpha=2.0):
     """The five `log_weight_stats` fields, as a (5,) tensor, from partials."""
-    _check('partials', partials, None, None)
+    check_tensor('partials', partials, None, None)
     if partials.dim() != 2 or partials.shape[1] != NPART \
             or partials.shape[0] == 0:
         raise ValueError('partials must be (b > 0, {})'.format(NPART))

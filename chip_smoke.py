@@ -50,11 +50,26 @@ result line:
 9. K2's draws held statistically: a KS test of ``philox_normal`` against
    N(0, 1), and d2 and khat from K2 against K1 fed ``torch.randn`` z at
    the same fit over 8 seeds each (|z| < 2 against K1's seed spread, the
-   benchmarks/KHAT_NOISE.md method).
+   benchmarks/KHAT_NOISE.md method);
+10. the ``run_experiment`` path, with every launch count set to 0 just
+    before it and read just after: KLVI then CHIVI (mean-field t(40),
+    lr 0.01 -> 0.001, n_mc 100 and 500, 1e6-sample bound and PSIS passes,
+    float32) on eight-schools NCP (5000 + 5000 iterations from the stored
+    NCP moments, examples/eight_schools.py ``--full``) and on the funnel
+    (10000 + 10000 iterations from ``[0, -1, 1, 1]``, examples/funnel.py
+    ``--full``); every khat, d2, W2 and mean error must be finite, K1, K3
+    and the combine must have launched, and each of the four khats must lie
+    within |z| < 3 of the JAX package's 16-seed band; then the card's busy
+    share during 500 CHIVI iterations (``torch.profiler``);
+11. K1 and K2 with the NCP and funnel densities against their plain
+    versions at that path's shapes (the fitted q, n = 1e6; f64 to 1e-10,
+    f32 to the K1 tolerances but the funnel's lw rtol 3e-5, printed with
+    its reason), then K1's time with each density beside its plain
+    version's and its bound, printed as per-model rows.
 
 The line before the last is a JSON object with one entry per kernel:
 route, source, the TPU kernel it replaces, launches on the paths of phases
-2 and 6 (summed), the float32 max abs error, its time, the plain
+2, 6 and 10 (summed), the float32 max abs error, its time, the plain
 version's time, its bound (the larger of bytes over 3.35 TB/s and
 operations over 67 TFLOP/s float32, H100 SXM data-sheet peaks; integer
 operations are counted at the float32 rate) and the library call's time
@@ -92,6 +107,21 @@ F32_OPS_PER_S = 67e12
 # density N (2 D + 7) + 6 D + 1 + statistics 16.
 OPS_K1, OPS_K3, OPS_COMBINE = 233, 17, 20
 OPS_PHILOX_GROUP = 128
+# the same count for run_experiment's densities: eight-schools NCP 128
+# (its CP 137 without the centring's divides and one log, plus an FMA for
+# theta per school), the funnel 13; K1 adds transform 2, Student-t base 6
+# a coordinate and statistics 16
+OPS_DENSITY = {'eight_schools_ncp': 128, 'funnel': 13}
+# run_experiment on the protocols of examples/eight_schools.py and
+# examples/funnel.py with --full (nothing cut)
+EXP_N, EXP_LR, EXP_LR_END = 1_000_000, 0.01, 0.001
+EXP_ITERS = {'eight_schools_ncp': 5000, 'funnel': 10000}
+# the JAX package's 16-seed khat bands, mean and sd, for these runs
+# (benchmarks/RESULTS.md:19-20, 31-32, from benchmarks/khat_noise.py)
+KHAT_BAND = {('eight_schools_ncp', 'KLVI'): (0.654, 0.029),
+             ('eight_schools_ncp', 'CHIVI'): (0.568, 0.031),
+             ('funnel', 'KLVI'): (0.80, 0.029),
+             ('funnel', 'CHIVI'): (0.85, 0.026)}
 
 
 def ops_k2(d, n_rows):
@@ -105,6 +135,11 @@ TOL = {'float64': dict(lw_atol=1e-10, lw_rtol=1e-10, rtol=1e-10),
 # -120 (a float32 ulp is 7.6e-6 there), and the rescaled moments
 # exp(lw - max)^alpha move by alpha times any difference in the max
 REGRESSION_STATS_RTOL = {'float64': 1e-10, 'float32': 1e-4}
+# the funnel's log-weights in float32: lw is about -z^2 / 2 with z = mu /
+# exp(log_sigma), so an error e in log_sigma moves lw by 2 e |lw|, and
+# log_sigma = mean + scale * t is rounded once by the kernel's FMA and twice
+# by PyTorch (2.05e-6 relative seen at |lw| = 2.4e6 in a card test)
+FUNNEL_F32_LW_RTOL = 3e-5
 REPLACES = {
     'transform_score_partials':
         'viabel_tpu/ops/sample_score.py:364 (fused_location_scale_lw_stats, '
@@ -692,6 +727,150 @@ def k2_statistics(vt, model, fam, ia_param, seeds=8):
                                  .format(name))
 
 
+def ops_k1(d, density_ops):
+    return 2 * d + 6 * d + density_ops + 16
+
+
+def k1_bytes(n, d, staged):
+    """K1's bytes in float32: z in, lw and the partials out, the mean,
+    log-scales and the model's staged data in."""
+    return n * d * 4 + n * 4 + -(-n // 2048) * 6 * 4 + 4 * (2 * d + staged)
+
+
+def experiment_models(vt):
+    """(model, family, float32 init on the card) of each run_experiment
+    protocol."""
+    from viabel_tpu_torch.models import eight_schools_ncp_model, funnel_model
+    ncp, funnel = eight_schools_ncp_model(), funnel_model()
+    fam10 = vt.mean_field_t_variational_family(10, 40)
+    return [(ncp, fam10, vt.init_from_moments(fam10, ncp.true_mean,
+                                              ncp.true_cov)),
+            (funnel, vt.mean_field_t_variational_family(2, 40),
+             torch.tensor([0.0, -1.0, 1.0, 1.0]))]
+
+
+def experiment_path(vt):
+    """Phase 10: run_experiment on eight-schools NCP and the funnel, with
+    the launch counts the two runs made."""
+    runs = {}
+    reset_launches()
+    for seed, (model, fam, init) in enumerate(experiment_models(vt)):
+        t_run, out = wall(lambda: vt.run_experiment(
+            model, fam, init.to('cuda', torch.float32), model.true_mean,
+            model.true_cov, learning_rate=EXP_LR,
+            learning_rate_end=EXP_LR_END, n_iters=EXP_ITERS[model.name],
+            bound_w2=EXP_N, n_psis_samples=EXP_N, plot_contours=False,
+            generator=torch.Generator(device='cuda').manual_seed(seed),
+            device='cuda'))
+        runs[model.name] = (t_run, out)
+    launches = read_launches()
+
+    for name, (t_run, out) in runs.items():
+        n_iters = EXP_ITERS[name]
+        log('run_experiment on {} (mf-t(40), {} + {} iterations, n_mc 100 '
+            'and 500, bound and PSIS at {:.0e}, float32): {:.3f} s'.format(
+                name, n_iters, n_iters, EXP_N, t_run))
+        for fit, other in ((out[2], out[4]), (out[3], out[5])):
+            method, psis, sec = fit['method'], other['psis_results'], \
+                other['seconds']
+            mean, sd = KHAT_BAND[(name, method)]
+            z = (psis['khat'] - mean) / sd
+            log('  {:5s} khat {!r} (JAX 16-seed band {} +- {}: z = {:+.2f}), '
+                'd2 {!r}, W2 {!r}, fit mean error {!r}, PSIS mean error {!r}'
+                .format(method, psis['khat'], mean, sd, z, float(other['d2']),
+                        float(other['W2']), float(fit['mean_error']),
+                        float(psis['mean_error'])))
+            log('        optimizer {:.3f} s ({:.1f} it/s), bound pass {:.4f} '
+                's, PSIS pass {:.4f} s'.format(
+                    sec['optimize'], n_iters / sec['optimize'],
+                    sec['bounds'], sec['psis']))
+            for key, value in (('khat', psis['khat']), ('d2', other['d2']),
+                               ('W2', other['W2']),
+                               ('fit mean error', fit['mean_error']),
+                               ('PSIS mean error', psis['mean_error'])):
+                if not is_finite(float(value)):
+                    raise AssertionError('{} {} {} is not finite: {}'.format(
+                        name, method, key, value))
+            if not abs(z) < 3:
+                raise AssertionError('{} {} khat {} is outside the JAX '
+                                     'package\'s band'.format(
+                                         name, method, psis['khat']))
+    log('kernel launches on the run_experiment path: {}'.format(launches))
+    require_launched(launches, ('transform_score_partials', 'lw_partials',
+                                'combine_partials'), 'run_experiment')
+
+    model, fam, init = experiment_models(vt)[0]
+    chivi = vt.black_box_chivi(2, fam, model, 500, presampled=True)
+    n_prof = 500
+    busy_s, kernels, t_prof = profile_busy(lambda: vt.adagrad_optimize(
+        n_prof, chivi, init.to('cuda', torch.float32), has_log_norm=False,
+        learning_rate=EXP_LR, learning_rate_end=EXP_LR_END,
+        return_history=False, device='cuda',
+        generator=torch.Generator(device='cuda').manual_seed(9)))
+    log('CHIVI on eight-schools NCP under the profiler ({} iters, after the '
+        'launch counts were read): wall {:.3f} s ({:.1f} it/s), device busy '
+        '{:.4f} s ({:.1f} %), {:.0f} kernels an iteration'.format(
+            n_prof, t_prof, n_prof / t_prof, busy_s, 100 * busy_s / t_prof,
+            kernels / n_prof))
+    return {name: out[4]['opt_param'] for name, (_, out) in runs.items()}, \
+        launches
+
+
+def experiment_kernel_checks(vt, fits):
+    """Phase 11: K1 and K2 with the NCP and funnel densities against their
+    plain versions at the run_experiment path's shapes, then K1's times
+    with each density."""
+    from viabel_tpu_torch.ops import gaussian_lw as gops
+    from viabel_tpu_torch.ops import lw_stats as ops
+
+    rows = []
+    for model, fam, _ in experiment_models(vt):
+        name, d, n = model.name, model.dim, EXP_N
+        fit = torch.as_tensor(fits[name], device='cuda')
+        z64 = fam.base_sample(torch.Generator(device='cuda').manual_seed(7),
+                              n, torch.float64)
+        errs = {}
+        for dtype in (torch.float64, torch.float32):
+            tol = dict(TOL[str(dtype).split('.')[1]])
+            if name == 'funnel' and dtype == torch.float32:
+                tol['lw_rtol'] = FUNNEL_F32_LW_RTOL
+                log('  funnel lw rtol {}: an error e in log_sigma moves lw '
+                    '(about -z^2 / 2, z = mu / exp(log_sigma)) by 2 e |lw|'
+                    .format(tol['lw_rtol']))
+            mean = fit[:d].to(dtype).contiguous()
+            log_scale = fit[d:].to(dtype).contiguous()
+            log('K1 and K2 with the {} density vs plain versions, {}, n = {}, '
+                'd = {}:'.format(name, dtype, n, d))
+            k1_args = (z64.to(dtype).contiguous(), mean, log_scale,
+                       model.kernel, model.kernel_data, fam.df)
+            k2_args = (mean, log_scale, n, 0x5DEECE66D, 0, model.kernel,
+                       model.kernel_data)
+            for label, kernel, plain, args in (
+                    ('K1', ops.transform_score_partials,
+                     ops.transform_score_partials_plain, k1_args),
+                    ('K2', gops.gaussian_sample_score_partials,
+                     gops.gaussian_sample_score_partials_plain, k2_args)):
+                lw, parts = kernel(*args)
+                lw_p, parts_p = plain(*args)
+                errs[label] = check_close(
+                    '{} {} lw'.format(label, name), lw, lw_p, tol['lw_atol'],
+                    tol['lw_rtol'])
+                check_close('{} {} + combine statistics'.format(label, name),
+                            ops.combine_partials(parts),
+                            ops.combine_partials_plain(parts_p), 0,
+                            tol['rtol'])
+        staged = 0 if name == 'funnel' else 16
+        row = timed_row(
+            'transform_score_partials ({})'.format(name),
+            lambda: ops.transform_score_partials(*k1_args),
+            lambda: ops.transform_score_partials_plain(*k1_args),
+            k1_bytes(n, d, staged), n * ops_k1(d, OPS_DENSITY[name]),
+            errs['K1'], n)
+        rows.append(dict(name='transform_score_partials', model=name, d=d,
+                         n=n, **row))
+    log('K1 by model density: {}'.format(json.dumps(rows)))
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -722,10 +901,14 @@ def main():
     regression_card_vs_cpu(vt)
     k2_statistics(vt, rmodel, rfam, ia_param)
 
+    fits, e_launches = experiment_path(vt)
+    experiment_kernel_checks(vt, fits)
+
     kernels = [dict(name=name, route='cuda',
                     source='viabel_tpu_torch/csrc/' + SOURCE[name],
                     replaces=REPLACES[name],
-                    launches=launches[name] + r_launches[name],
+                    launches=(launches[name] + r_launches[name]
+                              + e_launches[name]),
                     max_abs_err=rows[name]['max_abs_err'],
                     ms=rows[name]['ms'], plain_ms=rows[name]['plain_ms'],
                     bound_ms=rows[name]['bound_ms'],

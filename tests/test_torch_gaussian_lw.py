@@ -138,8 +138,8 @@ def test_wrappers_reject_bad_inputs():
                                          tm.kernel_data)
     log_std = log_std.double()
     with pytest.raises(ValueError):  # no such density
-        g.gaussian_sample_score_partials(mean, log_std, 10, 0, 0, 'funnel',
-                                         tm.kernel_data)
+        g.gaussian_sample_score_partials(mean, log_std, 10, 0, 0,
+                                         'no_such_density', tm.kernel_data)
     with pytest.raises(ValueError):  # the data's width is not d
         g.gaussian_sample_score_partials(mean[:9], log_std[:9], 10, 0, 0,
                                          tm.kernel, tm.kernel_data)

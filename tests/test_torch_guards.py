@@ -55,6 +55,9 @@ def test_entry_points_refuse_to_run_without_cuda(monkeypatch):
         pt.adagrad_optimize(10, obj, np.zeros(20))
     with pytest.raises(RuntimeError, match='device="cpu"'):
         pt.get_samples_and_log_weights(model, fam, np.zeros(20), 10)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        pt.run_experiment(model, fam, np.zeros(20), model.true_mean,
+                          model.true_cov, n_iters=10)
     assert pt.resolve_device('cpu') == torch.device('cpu')
 
 

@@ -112,7 +112,7 @@ def test_wrappers_check_inputs_and_count_only_launches():
         ops.transform_score_partials(z, mean.float(), mean, tm.kernel,
                                      tm.kernel_data)
     with pytest.raises(ValueError):
-        ops.transform_score_partials(z, mean, mean, 'funnel',
+        ops.transform_score_partials(z, mean, mean, 'no_such_density',
                                      tm.kernel_data)
     with pytest.raises(ValueError):  # the density unrolls 8 schools
         ops.transform_score_partials(z, mean, mean, tm.kernel,

@@ -49,7 +49,8 @@ def test_custom_data_and_kernel_tag():
     np.testing.assert_array_equal(t.kernel_data[0].numpy(), y)
     # the CUDA density unrolls J = 8; other data sizes have no kernel
     assert te.eight_schools_cp_model(y[:5], sigma[:5]).kernel is None
-    assert te.eight_schools_ncp_model().kernel is None
+    assert te.eight_schools_ncp_model().kernel == 'eight_schools_ncp'
+    assert te.eight_schools_ncp_model(y[:5], sigma[:5]).kernel is None
 
 
 def test_log_prob_follows_input_dtype():

@@ -1,7 +1,8 @@
 // Shared device code of the bound-pass kernels, for Hopper (sm_90a):
-// the per-chunk statistics, the model log densities, the Philox4x32-10
-// stream with Box-Muller, and the score kernel that K1 (lw_stats.cu,
-// external draws) and K2 (gaussian_lw.cu, draws made in-kernel) both
+// the per-chunk statistics, the model log densities (eight-schools CP
+// and NCP, the funnel, Bayesian regression), the Philox4x32-10 stream
+// with Box-Muller, and the score kernel that K1 (lw_stats.cu, external
+// draws) and K2 (gaussian_lw.cu, draws made in-kernel) both
 // instantiate.  ops/_build.py hashes this header into every library
 // built from csrc/, so an edit here rebuilds both.
 //
@@ -190,12 +191,19 @@ __device__ void chunk_partials(const T (&v)[ITEMS], const bool (&ok)[ITEMS],
 // the score kernel); the sample in registers.
 // ---------------------------------------------------------------------------
 
-enum ModelKind { EIGHT_SCHOOLS_CP = 0, REGRESSION = 1 };
+enum ModelKind {
+  EIGHT_SCHOOLS_CP = 0,
+  REGRESSION = 1,
+  EIGHT_SCHOOLS_NCP = 2,
+  FUNNEL = 3
+};
 
 // What the host passes for a model, by pointer, through the C interface;
 // ops/lw_stats.py mirrors it as a ctypes Structure.  a and b point to
-// device arrays in the launch's dtype: eight-schools CP a = y, b = sigma
-// (n_rows = J = 8); regression a = x (n_rows, d) row-major, b = y.
+// device arrays in the launch's dtype: eight-schools CP and NCP a = y,
+// b = sigma (n_rows = J = 8); regression a = x (n_rows, d) row-major,
+// b = y.  The funnel stages no data (n_rows = 0, a = b = null) and reads
+// its log_sigma prior's scale s from prior_std and log(s) from log_prior.
 struct ModelSpec {
   int kind;
   int n_rows;
@@ -204,7 +212,9 @@ struct ModelSpec {
   const void* a;
   const void* b;
   double df, half_df1, lik_lognorm;  // t: df, (df + 1) / 2, log-normalizer
-  double noise_scale, log_noise, prior_std, log_prior;
+  double noise_scale, log_noise;
+  double prior_std, log_prior;  // regression: N(0, prior_std) on beta;
+                                // funnel: N(0, s) on log_sigma
 };
 
 template <typename T>
@@ -223,9 +233,9 @@ struct ModelArgs {
 
   // values of a and b, staged into shared memory
   __host__ __device__ int n_a(int d) const {
-    return kind == REGRESSION ? n_rows * d : n_rows;
+    return kind == FUNNEL ? 0 : kind == REGRESSION ? n_rows * d : n_rows;
   }
-  __host__ __device__ int n_b() const { return n_rows; }
+  __host__ __device__ int n_b() const { return kind == FUNNEL ? 0 : n_rows; }
 };
 
 // Centred eight-schools at one sample, in the order of
@@ -295,12 +305,67 @@ __device__ __forceinline__ T regression(const T (&beta)[MAXD], int d,
   return loglik + logprior;
 }
 
+// Non-centred eight-schools at one sample, in the order of
+// viabel_tpu/models/eight_schools.py:99-108 (d = 10, J = 8):
+// theta = mu + tau * tt, an N(0, 1) prior on tt, and y ~ N(theta, sigma).
+template <typename T, int MAXD>
+__device__ __forceinline__ T eight_schools_ncp(const T (&x)[MAXD],
+                                               const T* y, const T* sigma) {
+  static_assert(MAXD >= 10, "eight-schools NCP needs d = 10");
+  constexpr int J = 8;
+  const T log_2pi = T(LOG_2PI);
+  T mu = x[0], log_tau = x[1];
+  T tau = d_exp(log_tau);
+  T zmu = mu / T(5);
+  T lp = T(-0.5) * (zmu * zmu + log_2pi) - T(LOG_5);
+  T ts = tau / T(5);
+  lp += -d_log(T(PI_5) * (T(1) + ts * ts)) + log_tau;
+  T s1 = T(0), s2 = T(0);
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    T tt = x[2 + j];
+    s1 += T(-0.5) * (tt * tt + log_2pi);
+  }
+  lp += s1;
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    T theta = mu + tau * x[2 + j];
+    T zy = (y[j] - theta) / sigma[j];
+    s2 += T(-0.5) * (zy * zy + log_2pi) - d_log(sigma[j]);
+  }
+  return lp + s2;
+}
+
+// Neal's funnel at one sample x = [mu, log_sigma], in the order of
+// viabel_tpu/models/funnel.py:14-18: log_sigma ~ N(0, s) and
+// mu ~ N(0, exp(log_sigma)); s and log(s) come from the host (d = 2).
+template <typename T, int MAXD>
+__device__ __forceinline__ T funnel(const T (&x)[MAXD],
+                                    const ModelArgs<T>& m) {
+  static_assert(MAXD >= 2, "the funnel needs d = 2");
+  const T log_2pi = T(LOG_2PI);
+  T mu = x[0], log_sigma = x[1];
+  T zs = log_sigma / m.prior_std;
+  T lp = T(-0.5) * (zs * zs + log_2pi) - m.log_prior;
+  T sigma = d_exp(log_sigma);
+  T zm = mu / sigma;
+  return lp + (T(-0.5) * (zm * zm + log_2pi) - d_log(sigma));
+}
+
 template <typename T, int MAXD>
 __device__ __forceinline__ T model_log_density(const T (&x)[MAXD], int d,
                                                const T* s_a, const T* s_b,
                                                const ModelArgs<T>& m) {
-  if (m.kind == REGRESSION) return regression<T, MAXD>(x, d, s_a, s_b, m);
-  return eight_schools_cp<T, MAXD>(x, s_a, s_b);
+  switch (m.kind) {
+    case REGRESSION:
+      return regression<T, MAXD>(x, d, s_a, s_b, m);
+    case EIGHT_SCHOOLS_NCP:
+      return eight_schools_ncp<T, MAXD>(x, s_a, s_b);
+    case FUNNEL:
+      return funnel<T, MAXD>(x, m);
+    default:
+      return eight_schools_cp<T, MAXD>(x, s_a, s_b);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -511,9 +576,9 @@ int launch_score_at(const Draws& draws, const void* mean,
   return int(cudaGetLastError());
 }
 
-// d = 10 (eight-schools CP, the regression path's D) runs a compile-time
-// instance, measured faster than the runtime one (PERF.md); any other d
-// the runtime instance of MAX_DIM.
+// d = 10 (eight-schools CP and NCP, the regression path's D) runs a
+// compile-time instance, measured faster than the runtime one (PERF.md);
+// any other d (the funnel's 2) the runtime instance of MAX_DIM.
 template <typename T, class Draws>
 int launch_score(const Draws& draws, const void* mean, const void* log_scale,
                  int d, const ModelSpec* spec, long long n, double alpha,

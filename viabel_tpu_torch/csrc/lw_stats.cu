@@ -14,7 +14,8 @@
 //   at 2e6dc2c^): x = mean + exp(log_scale) * z, lw = log p(x) - log q(x)
 //   with log q from the base density of z, then per-chunk partial
 //   statistics of lw.  z is (n, d) with d <= 32; the model density is
-//   eight-schools CP or the regression density (bound_pass.cuh).
+//   eight-schools CP or NCP, the funnel or the regression density
+//   (bound_pass.cuh).
 // * lw_partials (K3) replaces streaming_lw_stats
 //   (viabel_tpu/ops/sample_score.py:108-142 at 2e6dc2c^): the same
 //   per-chunk partials over an existing lw vector.

@@ -1,7 +1,11 @@
-"""Experiment harness: check accuracy, draw and score, PSIS-correct.
+"""Experiment harness: optimize, check accuracy, draw and score, bound,
+PSIS-correct.
 
-PyTorch port of viabel_tpu/experiments.py:39-184 (the reporting helpers,
-`get_samples_and_log_weights`, `psis_correction`, `improve_with_psis`).
+PyTorch port of viabel_tpu/experiments.py:39-184 and 283-387 (the
+reporting helpers, `get_samples_and_log_weights`, `psis_correction`,
+`improve_with_psis`, and `run_experiment`: KLVI then CHIVI, each followed
+by a bound pass and PSIS).  The plots and `improve_with_psis_sharded` are
+not ported.
 
 `draw_and_score` and `get_samples_and_log_weights` decide how a bound
 pass scores its samples:
@@ -21,19 +25,24 @@ pass scores its samples:
 The wrappers run the kernels on CUDA tensors and their plain versions on
 CPU tensors, so a CPU run draws and scores what a card run does.
 """
+import time
+
 import numpy as np
 import torch
 
 from ._device import default_generator, resolve_device
+from .bounds import all_bounds, family_moment_bounds
+from .objectives import black_box_chivi, black_box_klvi
 from .ops import gaussian_lw as _gaussian_ops
 from .ops import lw_stats as _lw_ops
 from .ops.philox import philox_seed
+from .optimizers import adagrad_optimize
 from .psis import psislw, weighted_moments
 
 __all__ = [
     'print_bounds', 'check_accuracy', 'check_approx_accuracy',
     'get_samples_and_log_weights', 'draw_and_score', 'psis_correction',
-    'improve_with_psis',
+    'improve_with_psis', 'run_experiment',
 ]
 
 # families whose transform is mean + exp(log_scale) * z with a base density
@@ -191,6 +200,14 @@ def improve_with_psis(log_density, var_family, var_param, n_samples,
     first."""
     samples, slw, khat = psis_correction(log_density, var_family, var_param,
                                          n_samples, generator, device)
+    return _psis_results(samples, slw, khat, true_mean, true_cov, transform,
+                         verbose)
+
+
+def _psis_results(samples, slw, khat, true_mean, true_cov, transform,
+                  verbose):
+    """`improve_with_psis`'s moments and report from the ``(d, n)`` samples
+    and their smoothed log-weights."""
     if verbose:
         print('khat = {:.3g}'.format(float(khat)))
         print()
@@ -210,3 +227,178 @@ def improve_with_psis(log_density, var_family, var_param, n_samples,
                          verbose)
     res['khat'] = float(khat)
     return res, approx_mean, approx_cov
+
+
+def _stage_banner(name):
+    """Section header of the experiment's console log
+    (viabel_tpu/experiments.py:283-287)."""
+    print()
+    print('======== {} ========'.format(name), flush=True)
+
+
+def _format_seconds(secs):
+    """viabel_tpu/utils/timers.py:14-22."""
+    if secs < 1e-3:
+        t, u = secs * 1e6, 'microsec'
+    elif secs < 1e0:
+        t, u = secs * 1e3, 'millisec'
+    else:
+        t, u = secs, 'sec'
+    return '{:.03f} {}'.format(t, u)
+
+
+def _wall(fn, device):
+    """``(seconds, fn())`` on the host clock, closed by a synchronize of
+    `device` when it is a card."""
+    t0 = time.perf_counter()
+    out = fn()
+    if device.type == 'cuda':
+        torch.cuda.synchronize(device)
+    return time.perf_counter() - t0, out
+
+
+def _split(generator, k):
+    """`k` generators on `generator`'s device, seeded by `k` 64-bit seeds
+    drawn from it in turn: the counterpart of ``jax.random.split``."""
+    return [torch.Generator(device=generator.device).manual_seed(
+        philox_seed(generator)) for _ in range(k)]
+
+
+def _samples_and_log_weights(log_density, var_family, var_param, n_samples,
+                             source):
+    """`get_samples_and_log_weights` from a generator, or the same pass on
+    given base draws z (the seam the parity tests feed)."""
+    if isinstance(source, torch.Generator):
+        return get_samples_and_log_weights(log_density, var_family,
+                                           var_param, n_samples, source,
+                                           var_param.device)
+    samples, lw, _ = draw_and_score(log_density, var_family, var_param,
+                                    source)
+    return samples, lw
+
+
+def _optimize_and_check_results(log_density, var_family, objective_and_grad,
+                                init_var_param, true_mean, true_cov,
+                                streams, elbo=None, n_iters=5000,
+                                bound_w2=True, verbose=False, use_psis=True,
+                                n_psis_samples=1000000, **kwargs):
+    """One stage of `run_experiment`: adagrad, the accuracy check, the
+    bound pass and PSIS (viabel_tpu/experiments.py:290-345).
+
+    `streams` is ``(optimizer, bound pass, PSIS)``: each a generator, or
+    the draws themselves (the optimizer's ``(n_iters, n_mc, d)`` block, the
+    passes' base draws z).  `kwargs` go to `adagrad_optimize`, with
+    ``has_log_norm=False`` unless given, as in the JAX package.  Besides
+    the JAX package's entries, the second result holds ``seconds``: the
+    wall time of the optimizer, the bound pass and PSIS.
+    """
+    opt_src, bound_src, psis_src = streams
+    device = init_var_param.device
+    kwargs.setdefault('has_log_norm', False)
+    kwargs['generator' if isinstance(opt_src, torch.Generator)
+           else 'draws'] = opt_src
+    seconds = {}
+    seconds['optimize'], (opt_param, var_param_history, value_history,
+                          _) = _wall(lambda: adagrad_optimize(
+                              n_iters, objective_and_grad, init_var_param,
+                              device=device, **kwargs), device)
+    accuracy_results = check_approx_accuracy(var_family, opt_param,
+                                             true_mean, true_cov, verbose)
+    other_results = dict(opt_param=_host(opt_param),
+                         var_param_history=_host(var_param_history),
+                         value_history=_host(value_history),
+                         seconds=seconds)
+    if bound_w2 not in [False, None]:
+        n_samples = 1000000 if bound_w2 is True else int(bound_w2)
+        print()
+
+        def bound_pass():
+            samples, log_weights = _samples_and_log_weights(
+                log_density, var_family, opt_param, n_samples, bound_src)
+            var_dist_cov = _host(var_family.mean_and_cov(opt_param)[1])
+            # None for df <= 4 t families: empirical fallback from samples
+            moment_bound_fn = family_moment_bounds(var_family, opt_param)
+            return all_bounds(
+                log_weights,
+                samples=samples if moment_bound_fn is None else None,
+                q_var=var_dist_cov, moment_bound_fn=moment_bound_fn,
+                log_norm_bound=elbo)
+
+        seconds['bounds'], bounds = _wall(bound_pass, device)
+        other_results.update(bounds)
+        print('bound estimation (CUBO + ELBO, {:,} MC samples) took {} to '
+              'run'.format(n_samples, _format_seconds(seconds['bounds'])))
+        if verbose:
+            print()
+            print_bounds(other_results)
+    if use_psis:
+        _stage_banner('PSIS-corrected moments')
+
+        def psis_pass():
+            samples, lw = _samples_and_log_weights(
+                log_density, var_family, opt_param, n_psis_samples, psis_src)
+            slw, khat = psislw(lw)
+            return _psis_results(samples.T, slw, khat, true_mean, true_cov,
+                                 None, verbose)[0]
+
+        seconds['psis'], other_results['psis_results'] = _wall(psis_pass,
+                                                               device)
+    return accuracy_results, other_results
+
+
+def _run_stages(log_density, var_family, klvi, chivi, init_param, true_mean,
+                true_cov, kl_streams, chivi_streams, **kwargs):
+    """KLVI's stage, then CHIVI's with KLVI's ``log_norm_bound`` as its
+    ELBO (viabel_tpu/experiments.py:374-387), each on its streams."""
+    _stage_banner('KLVI')
+    kl_results, other_kl_results = _optimize_and_check_results(
+        log_density, var_family, klvi, init_param, true_mean, true_cov,
+        kl_streams, **kwargs)
+    kl_results['method'] = 'KLVI'
+    _stage_banner('CHIVI')
+    elbo = other_kl_results.get('log_norm_bound')
+    chivi_results, other_chivi_results = _optimize_and_check_results(
+        log_density, var_family, chivi, init_param, true_mean, true_cov,
+        chivi_streams, elbo=elbo, **kwargs)
+    chivi_results['method'] = 'CHIVI'
+    return (klvi, chivi, kl_results, chivi_results, other_kl_results,
+            other_chivi_results)
+
+
+def run_experiment(log_density, var_family, init_param, true_mean, true_cov,
+                   kl_n_samples=100, chivi_n_samples=500, alpha=2,
+                   plot_contours=None, generator=None, presampled=True,
+                   device=None, **kwargs):
+    """KLVI then CHIVI on a target, CHIVI reusing KLVI's ELBO as its
+    log-normalizer bound; each fit is followed by a bound pass of
+    `bound_w2` samples and PSIS at `n_psis_samples`
+    (viabel_tpu/experiments.py:348-387).
+
+    `log_density` is a `models.Model` (whose `kernel` tag routes the bound
+    and PSIS passes to the fused kernels) or a batched callable.  Runs on
+    `device` (None: the CUDA card).  `generator` (default: seed 0 there)
+    is split into KLVI's and CHIVI's generators, and each of those into
+    the optimizer's, the bound pass's and PSIS's, six streams in all.
+    `kwargs` go to each stage (`n_iters`, `bound_w2`, `n_psis_samples`,
+    `use_psis`, `verbose`) and on to `adagrad_optimize` (the learning
+    rates, `window`, ``has_log_norm``, False by default).  The plots are
+    not ported: ``plot_contours=True`` raises NotImplementedError.
+
+    Returns ``(klvi, chivi, kl_results, chivi_results, other_kl_results,
+    other_chivi_results)`` as the JAX package does, the arrays in numpy.
+    """
+    if plot_contours:
+        raise NotImplementedError('the contour and history plots are not '
+                                  'ported (ROADMAP A.9)')
+    device = resolve_device(device)
+    if generator is None:
+        generator = default_generator(device)
+    klvi = black_box_klvi(var_family, log_density, kl_n_samples,
+                          presampled=presampled)
+    chivi = black_box_chivi(alpha, var_family, log_density, chivi_n_samples,
+                            presampled=presampled)
+    init_param = torch.as_tensor(init_param, device=device)
+    kl_gen, chivi_gen = _split(generator, 2)
+    return _run_stages(log_density, var_family, klvi, chivi, init_param,
+                       np.asarray(true_mean), true_cov, _split(kl_gen, 3),
+                       _split(chivi_gen, 3), **kwargs)

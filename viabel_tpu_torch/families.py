@@ -7,12 +7,14 @@ draws on the generator's device; ``sample(g, p, n) == transform(p,
 base_sample(g, n))`` holds exactly, which is what presampled objectives and
 the tests' shared draws rely on.
 
-The full-rank families and `init_from_moments` come with a later slice.
+`init_from_moments` takes the mean-field families; the full-rank families
+come with a later slice.
 """
 import math
 from functools import lru_cache
 from typing import Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from .distributions import (diag_normal_logpdf, diag_student_t_logpdf,
@@ -23,6 +25,7 @@ __all__ = [
     'NoClosedFormMomentError',
     'mean_field_gaussian_variational_family',
     'mean_field_t_variational_family',
+    'init_from_moments',
 ]
 
 _LOG_2PI = math.log(2.0 * math.pi)
@@ -185,3 +188,24 @@ def mean_field_t_variational_family(dim, df):
     return VariationalFamily(sample, entropy, log_prob, mean_and_cov,
                              pth_moment, 2 * dim, dim, 'mf_t',
                              base_sample, transform, df)
+
+
+def init_from_moments(family, mean, cov):
+    """Variational parameters ``[mean, log_scale]`` of a mean-field family
+    from a target's first and second moments, with ``log_scale = 0.5 log
+    diag(cov)`` (viabel_tpu/families.py:387-411).  For a Student-t family
+    the scale is set from `cov` directly, with no df/(df - 2) correction,
+    as the JAX package and the reference notebooks do.  Returns a float64
+    CPU tensor."""
+    mean = np.asarray(mean, dtype=float)
+    cov = np.atleast_2d(np.asarray(cov, dtype=float))
+    d = family.dim
+    if mean.shape != (d,) or cov.shape != (d, d):
+        raise ValueError('moments must have shape ({0},) and ({0}, {0})'
+                         .format(d))
+    if family.name not in ('mf_gaussian', 'mf_t'):
+        raise NotImplementedError(
+            'init_from_moments takes the mean-field families; the full-rank '
+            'families are not ported yet (ROADMAP A.3)')
+    log_scale = 0.5 * np.log(np.diag(cov))
+    return torch.as_tensor(np.concatenate([mean, log_scale]))

@@ -3,6 +3,7 @@ from .base import Model
 from .eight_schools import (EIGHT_SCHOOLS_SIGMA, EIGHT_SCHOOLS_Y,
                             eight_schools_cp_model, eight_schools_ncp_model,
                             eight_schools_ncp_to_cp)
+from .funnel import funnel_model
 from .regression import (data_generator_linear, linear_regression_model,
                          robust_regression_model,
                          robust_regression_notebook_data)
@@ -12,6 +13,7 @@ __all__ = [
     'eight_schools_cp_model',
     'eight_schools_ncp_model',
     'eight_schools_ncp_to_cp',
+    'funnel_model',
     'EIGHT_SCHOOLS_Y',
     'EIGHT_SCHOOLS_SIGMA',
     'robust_regression_model',

@@ -25,12 +25,14 @@ __all__ = [
     'eight_schools_cp_model',
     'eight_schools_ncp_model',
     'eight_schools_ncp_to_cp',
+    'cp_log_density',
+    'ncp_log_density',
 ]
 
 EIGHT_SCHOOLS_Y = np.array([28., 8., -3., 7., -1., 1., 18., 12.])
 EIGHT_SCHOOLS_SIGMA = np.array([15., 10., 16., 11., 9., 11., 10., 18.])
 
-# the CUDA log density in csrc/lw_stats.cu unrolls J = 8 schools
+# the CUDA log densities in csrc/bound_pass.cuh unroll J = 8 schools
 _KERNEL_J = 8
 
 
@@ -74,6 +76,20 @@ def cp_log_density(z2, y, sigma):
                           dim=-1)
 
 
+def ncp_log_density(z2, y, sigma):
+    """Non-centred eight-schools log density of the rows of ``z2``
+    (n, 2 + J), as `cp_log_density`; the plain version of the CUDA
+    bound-pass kernels scores with this too."""
+    mu, log_tau, theta_tilde = z2[:, 0], z2[:, 1], z2[:, 2:]
+    tau = torch.exp(log_tau)
+    theta = mu[:, None] + tau[:, None] * theta_tilde
+    lp = normal_logpdf(mu, 0.0, 5.0)
+    lp = lp + _half_cauchy_logpdf_with_jacobian(log_tau, 5.0)
+    lp = lp + torch.sum(normal_logpdf(theta_tilde, 0.0, 1.0), dim=-1)
+    return lp + torch.sum(normal_logpdf(y[None, :], theta, sigma[None, :]),
+                          dim=-1)
+
+
 def eight_schools_cp_model(y=None, sigma=None):
     """Centred parameterization: ``mu ~ N(0,5); tau ~ cauchy(0,5) [tau>0];
     theta ~ N(mu, tau); y ~ N(theta, sigma)``
@@ -100,23 +116,15 @@ def eight_schools_cp_model(y=None, sigma=None):
 def eight_schools_ncp_model(y=None, sigma=None):
     """Non-centred parameterization: ``theta_tilde ~ N(0,1)`` with
     ``theta = mu + tau * theta_tilde``
-    (viabel_tpu/models/eight_schools.py:90-117).  No CUDA log density yet
-    (`kernel` is None)."""
+    (viabel_tpu/models/eight_schools.py:90-117).  With J = 8 schools it
+    carries ``kernel='eight_schools_ncp'``, as the CP model does."""
     y, sigma, default = _data(y, sigma)
     J = len(y)
     data = _DataCache(y, sigma)
 
     def log_prob(z):
         z2 = torch.atleast_2d(z)
-        yj, sj = data.like(z2)
-        mu, log_tau, theta_tilde = z2[:, 0], z2[:, 1], z2[:, 2:]
-        tau = torch.exp(log_tau)
-        theta = mu[:, None] + tau[:, None] * theta_tilde
-        lp = normal_logpdf(mu, 0.0, 5.0)
-        lp = lp + _half_cauchy_logpdf_with_jacobian(log_tau, 5.0)
-        lp = lp + torch.sum(normal_logpdf(theta_tilde, 0.0, 1.0), dim=-1)
-        lp = lp + torch.sum(normal_logpdf(yj[None, :], theta, sj[None, :]),
-                            dim=-1)
+        lp = ncp_log_density(z2, *data.like(z2))
         return lp[0] if z.dim() == 1 else lp
 
     names = ('mu', 'log_tau') + tuple(
@@ -124,8 +132,9 @@ def eight_schools_ncp_model(y=None, sigma=None):
     true_mean = true_cov = None
     if default:
         true_mean, true_cov = _load_ground_truth('eight_schools_ncp')
+    kernel = 'eight_schools_ncp' if J == _KERNEL_J else None
     return Model(log_prob, 2 + J, 'eight_schools_ncp', true_mean, true_cov,
-                 names)
+                 names, kernel, data.host if kernel else None)
 
 
 def eight_schools_ncp_to_cp(z):

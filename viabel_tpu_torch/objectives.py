@@ -1,21 +1,25 @@
 """Variational objectives with autograd gradients.
 
-PyTorch port of viabel_tpu/objectives.py:50-125 (KLVI).  Each factory
-returns ``objective_and_grad(var_param, rng_or_draws) -> (value, grad)``;
-the gradient is a reparameterization gradient from `torch.autograd.grad`.
+PyTorch port of viabel_tpu/objectives.py:50-125 and 177-222 (KLVI and
+CHIVI).  Each factory returns ``objective_and_grad(var_param,
+rng_or_draws) -> (value, grad)`` (CHIVI adds a third output, the
+log-norm); the gradient is a reparameterization gradient from
+`torch.autograd.grad`.
 With ``presampled=True`` the objective consumes pre-generated base draws
 instead of a generator, and carries ``make_draws`` to produce them in one
 batch for a whole optimizer run, and ``make_draws_range`` to produce any
 range of iterations' draws of one stream (the IA optimizers' per-chain
 blocks).
 
-CHIVI and the other objectives come with a later slice.
+The path-derivative KLVI variants, `black_box_chivi_neff`,
+`perturbed_black_box_vi` and `vectorize_log_density` come with a later
+slice.
 """
 import torch
 
 from .ops.gaussian_lw import philox_normal
 
-__all__ = ['black_box_klvi']
+__all__ = ['black_box_klvi', 'black_box_chivi']
 
 
 def _attach_presampling(fn, var_family, n_samples):
@@ -107,3 +111,43 @@ def black_box_klvi(var_family, log_density, n_samples, presampled=False):
     if presampled:
         _attach_presampling(objective_and_grad, var_family, n_samples)
     return objective_and_grad
+
+
+def black_box_chivi(alpha, var_family, log_density, n_samples,
+                    presampled=False):
+    """CHIVI objective: the exponentiated CUBO
+    (viabel_tpu/objectives.py:177-222).
+
+    Returns ``(cubo, grad, log_norm)`` with ``log_norm = max lw``, the
+    rescaling the windowed adagrad uses when run with ``has_log_norm``.
+    The gradient is ``alpha J^T w / n`` with ``w = exp(lw - max lw)^alpha``
+    held constant: the vector-Jacobian product of the log-weights with a
+    detached cotangent, as the JAX package's ``jax.vjp`` with a stopped
+    cotangent; the CUBO value is not differentiated.  The naive Monte Carlo
+    CUBO degenerates once the log-weights spread over more than a few nats
+    (from d = 30 up in the JAX package's measurements): use it at small d.
+    """
+
+    def compute_log_weights(var_param, rng_or_draws):
+        samples = _sample_or_transform(var_family, n_samples, presampled,
+                                       var_param, rng_or_draws)
+        return log_density(samples) - var_family.log_prob(var_param, samples)
+
+    def objective_grad_and_log_norm(var_param, rng_or_draws):
+        with torch.enable_grad():
+            p = var_param.detach().requires_grad_(True)
+            log_weights = compute_log_weights(p, rng_or_draws)
+            lw = log_weights.detach()
+            log_norm = torch.max(lw)
+            scaled_values = torch.exp(lw - log_norm) ** alpha
+            value = torch.log(torch.mean(scaled_values)) / alpha + log_norm
+            vjp, = torch.autograd.grad(log_weights, p,
+                                       grad_outputs=scaled_values)
+        return value, alpha * vjp / scaled_values.numel(), log_norm
+
+    objective_grad_and_log_norm.has_log_norm = True
+    objective_grad_and_log_norm.compute_log_weights = compute_log_weights
+    if presampled:
+        _attach_presampling(objective_grad_and_log_norm, var_family,
+                            n_samples)
+    return objective_grad_and_log_norm

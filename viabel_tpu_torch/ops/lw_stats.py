@@ -9,8 +9,11 @@ Three CUDA kernels from ``csrc/lw_stats.cu`` (see the note at its top):
   ``lw = log p(x) - log q(x)`` with log q from the base density of z,
   writes lw, and writes one row of partial statistics per chunk of `CHUNK`
   samples.  log p is a model's CUDA device function, named by its
-  ``Model.kernel`` tag: ``'eight_schools_cp'`` or ``'regression'``
-  (`KERNEL_MODELS`); K2 (`ops.gaussian_lw`) scores with the same ones.
+  ``Model.kernel`` tag (`KERNEL_MODELS`): ``'eight_schools_cp'`` and
+  ``'eight_schools_ncp'`` (d = 10, J = 8), ``'funnel'`` (d = 2) or
+  ``'regression'``; K2 (`ops.gaussian_lw`) scores with the same ones.
+  Every TPU row model (viabel_tpu/ops/row_models.py at 2e6dc2c^) has its
+  device function.
 * `lw_partials` (K3) replaces ``streaming_lw_stats``
   (viabel_tpu/ops/sample_score.py:108-142 at 2e6dc2c^): the same partials
   over an existing lw vector.
@@ -22,8 +25,9 @@ Three CUDA kernels from ``csrc/lw_stats.cu`` (see the note at its top):
 
 Bound on an H100: K3 moves bytes, and so does K1 on eight-schools (it
 reads 40 B of z and writes 4 B of lw a sample in f32; its ~230 operations
-a sample need about a quarter of that time at the card's float32 rate); on
-the regression density K1 is bound by operations (~2 N d a sample).  Each
+a sample need about a quarter of that time at the card's float32 rate)
+and on the funnel (12 B and ~50 operations a sample); on the regression
+density K1 is bound by operations (~2 N d a sample).  Each
 reads its input once with warp-contiguous addresses, keeps the chunk's
 log-weights in registers between score and statistics, and writes lw plus
 one 6-value row per 2048 samples.
@@ -46,7 +50,8 @@ import math
 import torch
 
 from ..distributions import _LOG_2PI, t_lognorm
-from ..models.eight_schools import cp_log_density
+from ..models.eight_schools import cp_log_density, ncp_log_density
+from ..models.funnel import funnel_log_density
 from ..models.regression import regression_log_density
 from . import _build
 from .limits import MAX_DIM, MAX_STAGED_BYTES, staged_bytes
@@ -61,8 +66,12 @@ __all__ = [
 
 CHUNK = 2048          # samples per partials row; equals CHUNK in the .cuh
 NPART = 6
-KERNEL_MODELS = ('eight_schools_cp', 'regression')
-_CP_SCHOOLS = 8       # the CUDA eight-schools density unrolls J = 8
+# the CUDA densities, by Model.kernel tag, in the order of the .cuh's
+# ModelKind
+KERNEL_MODELS = ('eight_schools_cp', 'regression', 'eight_schools_ncp',
+                 'funnel')
+_SCHOOLS = 8          # the CUDA eight-schools densities unroll J = 8
+_FUNNEL_DIM = 2
 
 launches = {'transform_score_partials': 0, 'lw_partials': 0,
             'combine_partials': 0}
@@ -239,9 +248,13 @@ def _base_logpdf(z, df):
 def model_log_density_plain(kernel, kernel_data, x):
     """The plain version of the CUDA log density named `kernel` at the rows
     of ``x`` (n, d)."""
-    if kernel == 'eight_schools_cp':
+    if kernel in ('eight_schools_cp', 'eight_schools_ncp'):
         y, sigma = (t.to(x.device, x.dtype) for t in kernel_data)
-        return cp_log_density(x, y, sigma)
+        density = (cp_log_density if kernel == 'eight_schools_cp'
+                   else ncp_log_density)
+        return density(x, y, sigma)
+    if kernel == 'funnel':
+        return funnel_log_density(x, *kernel_data)
     xd, y, df, noise_scale, prior_std = kernel_data
     return regression_log_density(x, xd.to(x.device, x.dtype),
                                   y.to(x.device, x.dtype), df, noise_scale,
@@ -256,12 +269,17 @@ def check_kernel_model(kernel, kernel_data, d, itemsize):
     if not 1 <= d <= MAX_DIM:
         raise ValueError('the score kernels take 1 <= d <= {}, got {}'
                          .format(MAX_DIM, d))
-    if kernel == 'eight_schools_cp':
-        if (d != 2 + _CP_SCHOOLS or [tuple(t.shape) for t in kernel_data]
-                != [(_CP_SCHOOLS,)] * 2):
+    if kernel in ('eight_schools_cp', 'eight_schools_ncp'):
+        if (d != 2 + _SCHOOLS or [tuple(t.shape) for t in kernel_data]
+                != [(_SCHOOLS,)] * 2):
             raise ValueError('{} needs d = {} and y and sigma of {} schools'
-                             .format(kernel, 2 + _CP_SCHOOLS, _CP_SCHOOLS))
-        staged = 2 * _CP_SCHOOLS
+                             .format(kernel, 2 + _SCHOOLS, _SCHOOLS))
+        staged = 2 * _SCHOOLS
+    elif kernel == 'funnel':
+        if d != _FUNNEL_DIM or len(kernel_data) != 1:
+            raise ValueError('{} needs d = {} and (log_sigma_stdev,), got '
+                             'd = {}'.format(kernel, _FUNNEL_DIM, d))
+        staged = 0
     else:
         xd, y = kernel_data[:2]
         if xd.dim() != 2 or xd.shape[1] != d or tuple(y.shape) != (
@@ -280,15 +298,19 @@ def check_kernel_model(kernel, kernel_data, d, itemsize):
 def model_spec(kernel, kernel_data, device, dtype):
     """The `ModelSpec` of a launch and the device tensors it points to
     (the caller holds them until the launch is enqueued)."""
-    if kernel == 'eight_schools_cp':
+    kind = KERNEL_MODELS.index(kernel)
+    if kernel in ('eight_schools_cp', 'eight_schools_ncp'):
         a, b = (t.to(device, dtype).contiguous() for t in kernel_data)
-        spec = ModelSpec(kind=0, n_rows=a.shape[0], a=a.data_ptr(),
+        spec = ModelSpec(kind=kind, n_rows=a.shape[0], a=a.data_ptr(),
                          b=b.data_ptr())
         return spec, (a, b)
+    if kernel == 'funnel':  # its prior scale rides in prior_std
+        s, = kernel_data
+        return ModelSpec(kind=kind, prior_std=s, log_prior=math.log(s)), ()
     xd, y, df, noise_scale, prior_std = kernel_data
     a, b = (t.to(device, dtype).contiguous() for t in (xd, y))
     spec = ModelSpec(
-        kind=1, n_rows=a.shape[0], student_t=int(df is not None),
+        kind=kind, n_rows=a.shape[0], student_t=int(df is not None),
         a=a.data_ptr(), b=b.data_ptr(), df=float(df or 0.0),
         half_df1=0.5 * (df + 1.0) if df is not None else 0.0,
         lik_lognorm=t_lognorm(df) if df is not None else 0.0,

@@ -127,7 +127,7 @@ def _adagrad_run(obj, n_iters, window, learning_rate, epsilon,
 def adagrad_optimize(n_iters, objective_and_grad, init_param, *,
                      generator=None, has_log_norm=None, window=10,
                      learning_rate=.01, epsilon=.1, learning_rate_end=None,
-                     return_history=True, device=None):
+                     return_history=True, device=None, draws=None):
     """Windowed adagrad with min-log-norm gradient rescaling and
     tail-quarter iterate averaging (viabel_tpu/optimizers.py:306-349).
 
@@ -135,15 +135,20 @@ def adagrad_optimize(n_iters, objective_and_grad, init_param, *,
     value_history, log_norm_history)``; the parameter history covers the
     last quarter of the iterations, and is None with
     ``return_history=False``.  Runs on `device` (None: the CUDA card);
-    `generator` defaults to seed 0 on that device.
+    `generator` defaults to seed 0 on that device.  A presampled objective
+    draws its ``(n_iters, n_mc, d)`` block from `generator`, or takes it
+    as `draws` (e.g. `interop.presampled_draws` of the JAX package's).
     """
     device = resolve_device(device)
     if generator is None:
         generator = default_generator(device)
     obj = _wrap_objective(objective_and_grad, has_log_norm)
     init_param = torch.as_tensor(init_param, device=device)
-    draws = generator
-    if obj.presampled:
+    if not obj.presampled:
+        if draws is not None:
+            raise ValueError('draws= feeds a presampled objective only')
+        draws = generator
+    elif draws is None:
         draws = objective_and_grad.make_draws(generator, n_iters,
                                               init_param.dtype)
     values, log_norms, params, tail_mean = _adagrad_run(

@@ -2,6 +2,8 @@
 """Smoke run of the PyTorch port on one CUDA card: build, check, drive.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --kernels-only   # phases 1, 3, 7 and 11 alone, at
+                                           # stand-in fits; no result line
 
 Phases, each printed as it goes; any failure exits non-zero before the
 result line:
@@ -19,13 +21,17 @@ result line:
 3. K1, K3 and the combine against their plain PyTorch versions at that
    path's shapes (the fitted q, n = 2.5e6, d = 10) in float64 (logic:
    1e-10 relative) and float32 (lw atol 2e-4 + rtol 2e-6, statistics rtol
-   2e-5), then each kernel's time and its plain version's time in float32,
-   by CUDA events (median of 15 launches after 3 warm-ups, L2 flushed
-   before each);
+   2e-5), K1 again at an n that leaves a ragged tile and at a z whose
+   address is 8 bytes off a multiple of 16, then each kernel's two times
+   and its plain version's time in float32: CUDA events around the
+   wrapper's call (median of 15 launches after 3 warm-ups, L2 flushed
+   before each), and the kernel's own duration on the card by name from a
+   ``torch.profiler`` trace (mean of 10 launches, L2 flushed before each);
 4. that path's pipeline core at a small size on the card (kernels) against
    the same on the CPU (plain versions), float64, on shared draws;
 5. where its time goes, at steady state: ``validated_vi`` again, the
-   optimizer alone (it/s), the bound pass's draws and fused score, PSIS,
+   optimizer alone (it/s, over 2000 iterations), the bound pass's draws
+   and fused score, PSIS,
    and the card's busy share during the optimizer (``torch.profiler``; a
    trace without device time fails the run);
 6. the regression path, with every launch count set to 0 just before it
@@ -42,8 +48,10 @@ result line:
    K1 tolerances), the device Philox's bits against the plain version's
    and Random123's known answers, and K1 with the regression density
    (mean-field t(40) on the robust-regression model) against its plain
-   version; then the times of K2, ``philox_normal``, their plain versions
-   and ``torch.randn`` for the same (n, d);
+   version, aligned, ragged and off alignment, and its times; then the
+   times of K2, ``philox_normal`` and their plain versions, with
+   ``torch.randn`` for the same (n, d) timed in turns with ``philox_normal``
+   (kernel, library, library, kernel);
 8. the regression path at a small size (2 chains, 300 iterations, 2e4
    samples, float64, one seed) on the card (kernels) against the CPU
    (plain versions): the same Philox streams give the same draws;
@@ -64,17 +72,21 @@ result line:
 11. K1 and K2 with the NCP and funnel densities against their plain
     versions at that path's shapes (the fitted q, n = 1e6; f64 to 1e-10,
     f32 to the K1 tolerances but the funnel's lw rtol 3e-5, printed with
-    its reason), then K1's time with each density beside its plain
-    version's and its bound, printed as per-model rows.
+    its reason; K1 also ragged and off alignment), then K1's times with
+    each density beside its plain version's and its bound, printed as
+    per-model rows.
 
 The line before the last is a JSON object with one entry per kernel:
 route, source, the TPU kernel it replaces, launches on the paths of phases
-2, 6 and 10 (summed), the float32 max abs error, its time, the plain
+2, 6 and 10 (summed), the float32 max abs error, its time by events
+around the call (``ms``) and on the card (``device_ms``), the plain
 version's time, its bound (the larger of bytes over 3.35 TB/s and
 operations over 67 TFLOP/s float32, H100 SXM data-sheet peaks; integer
-operations are counted at the float32 rate) and the library call's time
-(``torch.randn`` for ``philox_normal``; no single PyTorch call computes
-the others, so theirs is null).  The last line is
+operations are counted at the float32 rate, and a division or a
+transcendental as one operation though it costs the card many
+instructions) and the library call's time (``torch.randn`` for
+``philox_normal``; no single PyTorch call computes the others, so theirs
+is null).  The last line is
 ``{"ok": true, "device": {...}}``.
 """
 import json
@@ -91,6 +103,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 
 N_ITERS, N_MC, N_BOUND = 5000, 100, 2_500_000
+N_OPT_ALONE = 2000   # phase 5 times the optimizer alone at this depth
 # the regression path (examples/linear_regression_ia.py main(full=True),
 # depth cut from 20000 iterations to 5000)
 IA_ITERS, IA_CHAINS, IA_LR, IA_BOUND = 5000, 4, 0.02, 1_000_000
@@ -169,6 +182,9 @@ _MANGLED = (('LoadedDraws', 'transform_score_partials'),
             ('combine_partials_kernel', 'combine_partials'),
             ('philox_normal_kernel', 'philox_normal'),
             ('philox_bits_kernel', 'philox_bits'))
+# the wrapper -> the part of its device kernel's name that a trace shows
+KERNEL_KEY = {wrapper: key for key, wrapper in _MANGLED}
+RANDN_KEY = 'distribution_elementwise'  # torch.randn's kernel, in a trace
 
 
 def log(msg):
@@ -183,9 +199,10 @@ def card_line():
     return out[0]
 
 
-def log_ptxas(text):
+def log_ptxas(text, only=''):
     """Each kernel's registers, spills and shared memory from nvcc's
-    ``-Xptxas=-v`` output, named by wrapper, type and the d it takes."""
+    ``-Xptxas=-v`` output, named by wrapper, type and the d it takes
+    (only the kernels whose name holds `only`)."""
     kernel = '?'
     for line in text.splitlines():
         if 'Compiling entry function' in line:
@@ -195,10 +212,11 @@ def log_ptxas(text):
                      else 'f32' if 'IfL' in mangled or 'IfE' in mangled
                      else '')
             maxd = next((label for key, label in (
-                ('Li10ELi10E', 'd=10'), ('Li32ELi0E', 'd<=32'))
+                ('Li10ELi10E', 'd=10'), ('Li2ELi2E', 'd=2'),
+                ('Li32ELi0E', 'd<=32'))
                 if key in mangled), '')
             kernel = ' '.join(w for w in (name, dtype, maxd) if w)
-        elif 'registers' in line or 'spill' in line:
+        elif only in kernel and ('registers' in line or 'spill' in line):
             log('  {}: {}'.format(kernel, line.split(':', 1)[-1].strip()
                                   if 'ptxas' in line else line.strip()))
 
@@ -225,6 +243,40 @@ def median_ms(fn, reps=15, warmup=3):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, key, reps=10, required=True, attempts=3):
+    """Mean duration on the card of the kernel whose name holds `key`, from
+    a ``torch.profiler`` trace of `reps` calls of ``fn()`` with the L2 cache
+    flushed before each.  Unlike `median_ms` it holds none of the time the
+    host takes to enqueue the launch, nor the copies and casts the wrapper
+    makes before it.  A trace now and then comes back without its kernel
+    records (seen once, right after a long trace), so a trace without the
+    kernel is taken again, `attempts` times in all; then this raises, or
+    returns None where the kernel is a library's and not `required`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32, device='cuda')
+    fn()
+    for _ in range(attempts):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        hits = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and key in e.key]
+        count = sum(e.count for e in hits)
+        if count:
+            return sum(e.self_device_time_total for e in hits) / count * 1e-3
+        log('  no kernel named *{}* in this trace'.format(key))
+    if not required:
+        return None
+    raise AssertionError('{} profiler traces hold no kernel named *{}*'
+                         .format(attempts, key))
 
 
 def check_close(name, got, want, atol, rtol):
@@ -258,6 +310,36 @@ def require_launched(launches, names, path):
         if launches[name] <= 0:
             raise AssertionError('kernel {} never launched on the {} path'
                                  .format(name, path))
+
+
+RAGGED_N = 300_007  # leaves a ragged 256-sample tile and a ragged chunk
+
+
+def check_k1_ragged_unaligned(label, k1_args, tol, stats_rtol):
+    """K1 against its plain version on the first `RAGGED_N` rows of z,
+    placed 8 bytes off 16-byte alignment (a contiguous slice of a larger
+    tensor): the kernel's scalar head, tail and direct-load paths."""
+    from viabel_tpu_torch.ops import lw_stats as ops
+
+    z = k1_args[0]
+    off = 8 // z.element_size()
+    buf = torch.empty(RAGGED_N * z.shape[1] + off, dtype=z.dtype,
+                      device=z.device)
+    z_u = buf[off:].view(RAGGED_N, z.shape[1])
+    z_u.copy_(z[:RAGGED_N])
+    if z_u.data_ptr() % 16 != 8 or not z_u.is_contiguous():
+        raise AssertionError('the slice is not 8 bytes off alignment')
+    for name, zz in (('ragged n = {}'.format(RAGGED_N),
+                      z[:RAGGED_N].contiguous()),
+                     ('ragged, z 8 B off 16-byte alignment', z_u)):
+        args = (zz,) + tuple(k1_args[1:])
+        lw, parts = ops.transform_score_partials(*args)
+        lw_p, parts_p = ops.transform_score_partials_plain(*args)
+        check_close('K1 {} lw, {}'.format(label, name), lw, lw_p,
+                    tol['lw_atol'], tol['lw_rtol'])
+        check_close('K1 {} statistics, {}'.format(label, name),
+                    ops.combine_partials(parts),
+                    ops.combine_partials_plain(parts_p), 0, stats_rtol)
 
 
 def main_path(vt, model, fam):
@@ -316,7 +398,8 @@ def kernel_checks(model, fam, opt):
         z = z64.to(dtype).contiguous()
         mean = opt[:d].to(dtype).contiguous()
         log_scale = opt[d:].to(dtype).contiguous()
-        args = (z, mean, log_scale, model.kernel, model.kernel_data, fam.df)
+        args = (z, mean, log_scale, model.kernel, model.kernel_data_like(z),
+                fam.df)
         lw, parts = ops.transform_score_partials(*args)
         lw_p, parts_p = ops.transform_score_partials_plain(*args)
         stats_p = ops.combine_partials_plain(parts_p)
@@ -337,6 +420,7 @@ def kernel_checks(model, fam, opt):
                     stats_p, 0, rtol)
         check_close('K3 + combine statistics', ops.lw_stats(lw_p), stats_p,
                     0, rtol)
+        check_k1_ragged_unaligned('eight_schools_cp', args, tol, rtol)
 
     n, nc = N_BOUND, parts.shape[0]
     times = {
@@ -358,20 +442,45 @@ def kernel_checks(model, fam, opt):
             for name, spec in times.items()}
 
 
-def timed_row(name, kernel, plain, nbytes, nops, err, n, library=None):
-    """The kernel's, its plain version's and the library call's device
-    times, float32, beside the bound of the work."""
+def timed_row(name, kernel, plain, nbytes, nops, err, n, library=None,
+              label=None, library_key=None):
+    """The kernel's, its plain version's and the library call's times,
+    float32, beside the bound of the work.  ``ms`` is `median_ms` of the
+    wrapper's call (events on the stream around it: it holds what the
+    wrapper enqueues before the kernel and, where the host is slower than
+    the flush, the enqueue itself); ``device_ms`` is the kernel's own
+    duration on the card (`device_ms`).  With a library call the two are
+    timed in turns (kernel, library, library, kernel), all four logged;
+    ``ms`` and ``library_ms`` are the first turn of each, so that ``ms``
+    is taken as in every other row;
+    ``library_device_ms`` is the library kernel's duration on the card
+    where the trace names it `library_key`."""
+    label = label or name
     ms = median_ms(kernel)
+    library_ms = library_dev_ms = None
+    if library is not None:
+        lib_turns = [median_ms(library), median_ms(library)]
+        turns = [ms, median_ms(kernel)]
+        log('{} in turns with the library call: kernel {:.4f}, library '
+            '{:.4f}, library {:.4f}, kernel {:.4f} ms'.format(
+                label, turns[0], lib_turns[0], lib_turns[1], turns[1]))
+        library_ms = lib_turns[0]
+        library_dev_ms = device_ms(library, library_key, required=False)
+        log('{}: the library call on the card: {} ms'.format(
+            label, library_dev_ms))
+    dev_ms = device_ms(kernel, KERNEL_KEY[name])
     plain_ms = median_ms(plain)
-    library_ms = median_ms(library) if library is not None else None
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = nops / F32_OPS_PER_S * 1e3
-    row = dict(ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+    row = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+               bound_ms=max(t_bytes, t_ops),
                bound_by='bytes' if t_bytes >= t_ops else 'operations',
-               max_abs_err=err, library_ms=library_ms)
-    log('{}: {:.4f} ms (plain {:.4f} ms, library {}), bound {:.4f} ms by {} '
+               max_abs_err=err, library_ms=library_ms,
+               library_device_ms=library_dev_ms)
+    log('{}: {:.4f} ms by events around the call, {:.4f} ms on the card by '
+        'the profiler (plain {:.4f} ms, library {}), bound {:.4f} ms by {} '
         '({} B, {} ops), float32, n = {}'.format(
-            name, ms, plain_ms, 'none' if library_ms is None
+            label, ms, dev_ms, plain_ms, 'none' if library_ms is None
             else '{:.4f} ms'.format(library_ms), row['bound_ms'],
             row['bound_by'], nbytes, nops, n))
     return row
@@ -430,7 +539,7 @@ def time_breakdown(vt, model, fam, opt):
     obj = vt.black_box_klvi(fam, model, N_MC, presampled=True)
     g = torch.Generator(device='cuda').manual_seed(4)
     t_opt, _ = wall(lambda: vt.adagrad_optimize(
-        N_ITERS, obj, init, generator=g, return_history=False, **kw))
+        N_OPT_ALONE, obj, init, generator=g, return_history=False, **kw))
     t_draw, z = wall(lambda: fam.base_sample(g, N_BOUND, torch.float32))
     t_score, (samples, lw, _) = wall(
         lambda: draw_and_score(model, fam, opt, z))
@@ -440,7 +549,7 @@ def time_breakdown(vt, model, fam, opt):
     log('steady state: validated_vi {:.3f} s; adagrad {} iters {:.3f} s '
         '({:.1f} it/s); t(40) draws {}x{} {:.4f} s; transform+score+stats '
         '{:.4f} s; PSIS+weighted moments {:.4f} s'.format(
-            t_vvi, N_ITERS, t_opt, N_ITERS / t_opt, N_BOUND, fam.dim,
+            t_vvi, N_OPT_ALONE, t_opt, N_OPT_ALONE / t_opt, N_BOUND, fam.dim,
             t_draw, t_score, t_psis))
     n_prof = 500
     busy_s, launches, t_prof = profile_busy(lambda: vt.adagrad_optimize(
@@ -575,7 +684,7 @@ def regression_kernel_checks(vt, model, fam, ia_param):
         mean = ia_param[:d].to(dtype).contiguous()
         log_std = ia_param[d:].to(dtype).contiguous()
         args = (mean, log_std, n, seed, offset, model.kernel,
-                model.kernel_data)
+                model.kernel_data_like(mean))
         log('K2 and philox_normal vs plain versions, {}, n = {}, d = {}:'
             .format(dtype, n, d))
         lw, parts = gops.gaussian_sample_score_partials(*args)
@@ -619,15 +728,31 @@ def regression_kernel_checks(vt, model, fam, ia_param):
         log_scale = torch.as_tensor(0.5 * np.log(np.diag(robust.true_cov)),
                                     dtype=dtype, device='cuda')
         k1_args = (zt.to(dtype).contiguous(), mean, log_scale, robust.kernel,
-                   robust.kernel_data, 40.0)
+                   robust.kernel_data_like(mean), 40.0)
         lw, parts = ops.transform_score_partials(*k1_args)
         lw_p, parts_p = ops.transform_score_partials_plain(*k1_args)
         check_close('K1 regression (robust, mf-t(40)) lw, {}'.format(dtype),
                     lw, lw_p, tol['lw_atol'], tol['lw_rtol'])
-        check_close('K1 regression statistics, {}'.format(dtype),
-                    ops.combine_partials(parts),
-                    ops.combine_partials_plain(parts_p), 0,
-                    REGRESSION_STATS_RTOL[str(dtype).split('.')[1]])
+        k1_err = check_close(
+            'K1 regression statistics, {}'.format(dtype),
+            ops.combine_partials(parts),
+            ops.combine_partials_plain(parts_p), 0,
+            REGRESSION_STATS_RTOL[str(dtype).split('.')[1]])
+        check_k1_ragged_unaligned(
+            'regression', k1_args, tol,
+            REGRESSION_STATS_RTOL[str(dtype).split('.')[1]])
+    rn, rd = robust.kernel_data[0].shape
+    k1_row = timed_row(
+        'transform_score_partials',
+        lambda: ops.transform_score_partials(*k1_args),
+        lambda: ops.transform_score_partials_plain(*k1_args),
+        k1_bytes(n, rd, rn * (rd + 1)),
+        n * ops_k1(rd, rn * (2 * rd + 7) + 6 * rd + 1), k1_err, n,
+        label='transform_score_partials (regression, N = {}, d = {})'
+        .format(rn, rd))
+    log('K1 with the regression density: {}'.format(json.dumps(dict(
+        name='transform_score_partials', model='robust regression', d=rd,
+        n=n, n_rows=rn, **k1_row))))
 
     n_rows = model.kernel_data[0].shape[0]
     lib_gen = torch.Generator(device='cuda').manual_seed(4)
@@ -648,7 +773,8 @@ def regression_kernel_checks(vt, model, fam, ia_param):
             n * d * 4, n * OPS_PHILOX_GROUP * -(-d // 4),
             errs['philox_normal'], n,
             library=lambda: torch.randn((n, d), generator=lib_gen,
-                                        device='cuda')),
+                                        device='cuda'),
+            library_key=RANDN_KEY),
     }
 
 
@@ -705,11 +831,11 @@ def k2_statistics(vt, model, fam, ia_param, seeds=8):
         g = torch.Generator(device='cuda').manual_seed(100 + i)
         lw2, parts2 = gops.gaussian_sample_score_partials(
             mean, log_std, n, philox_seed(g), 0, model.kernel,
-            model.kernel_data)
+            model.kernel_data_like(mean))
         st2 = ops.combine_partials(parts2)
         zr = torch.randn((n, d), generator=g, device='cuda')
         lw1, st1 = ops.transform_score_stats(zr, mean, log_std, model.kernel,
-                                             model.kernel_data)
+                                             model.kernel_data_like(mean))
         for key, lw, st in (('K2', lw2, st2), ('K1', lw1, st1)):
             d2 = divergence_bound(None, _stats=dict(
                 zip(vt.bounds.STAT_KEYS, st.cpu().tolist()), n=n))
@@ -842,9 +968,9 @@ def experiment_kernel_checks(vt, fits):
             log('K1 and K2 with the {} density vs plain versions, {}, n = {}, '
                 'd = {}:'.format(name, dtype, n, d))
             k1_args = (z64.to(dtype).contiguous(), mean, log_scale,
-                       model.kernel, model.kernel_data, fam.df)
+                       model.kernel, model.kernel_data_like(mean), fam.df)
             k2_args = (mean, log_scale, n, 0x5DEECE66D, 0, model.kernel,
-                       model.kernel_data)
+                       model.kernel_data_like(mean))
             for label, kernel, plain, args in (
                     ('K1', ops.transform_score_partials,
                      ops.transform_score_partials_plain, k1_args),
@@ -859,16 +985,43 @@ def experiment_kernel_checks(vt, fits):
                             ops.combine_partials(parts),
                             ops.combine_partials_plain(parts_p), 0,
                             tol['rtol'])
+            check_k1_ragged_unaligned(name, k1_args, tol, tol['rtol'])
         staged = 0 if name == 'funnel' else 16
         row = timed_row(
-            'transform_score_partials ({})'.format(name),
+            'transform_score_partials',
             lambda: ops.transform_score_partials(*k1_args),
             lambda: ops.transform_score_partials_plain(*k1_args),
             k1_bytes(n, d, staged), n * ops_k1(d, OPS_DENSITY[name]),
-            errs['K1'], n)
+            errs['K1'], n,
+            label='transform_score_partials ({})'.format(name))
         rows.append(dict(name='transform_score_partials', model=name, d=d,
                          n=n, **row))
     log('K1 by model density: {}'.format(json.dumps(rows)))
+
+
+def moments_fit(model):
+    """A stand-in fit: the model's ground-truth mean and marginal scales."""
+    return torch.as_tensor(np.concatenate([
+        model.true_mean, 0.5 * np.log(np.diag(model.true_cov))]),
+        dtype=torch.float32, device='cuda')
+
+
+def kernels_only(vt, model, fam):
+    """``--kernels-only``: phases 3, 7 and 11 alone (every kernel against
+    its plain version and its times at the paths' shapes) at stand-in fits,
+    with no path driven and no result line.  For work on the kernels."""
+    rows = kernel_checks(model, fam, moments_fit(model))
+    rmodel = regression_model()
+    rfam = vt.mean_field_gaussian_variational_family(rmodel.dim)
+    rows.update(regression_kernel_checks(vt, rmodel, rfam,
+                                         moments_fit(rmodel)))
+    ncp = experiment_models(vt)[0][0]
+    experiment_kernel_checks(vt, {
+        ncp.name: moments_fit(ncp).cpu().numpy(),
+        'funnel': np.array([0.0, 0.0, 1.0, 0.3], dtype=np.float32)})
+    log(card_line())
+    log(json.dumps({'kernels_only': rows}))
+    return 0
 
 
 def main():
@@ -891,6 +1044,8 @@ def main():
 
     model = eight_schools_cp_model()
     fam = vt.mean_field_t_variational_family(model.dim, 40)
+    if '--kernels-only' in sys.argv[1:]:
+        return kernels_only(vt, model, fam)
     out, launches = main_path(vt, model, fam)
     rows = kernel_checks(model, fam, out['opt_param'])
     small_reference_check(vt, model, fam)
@@ -910,7 +1065,8 @@ def main():
                     launches=(launches[name] + r_launches[name]
                               + e_launches[name]),
                     max_abs_err=rows[name]['max_abs_err'],
-                    ms=rows[name]['ms'], plain_ms=rows[name]['plain_ms'],
+                    ms=rows[name]['ms'], device_ms=rows[name]['device_ms'],
+                    plain_ms=rows[name]['plain_ms'],
                     bound_ms=rows[name]['bound_ms'],
                     bound_by=rows[name]['bound_by'],
                     library_ms=rows[name]['library_ms'])

@@ -15,11 +15,11 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _port_sources():
-    pkg = os.path.join(ROOT, 'viabel_tpu_torch')
-    for dirpath, _, files in os.walk(pkg):
-        for f in files:
-            if f.endswith('.py'):
-                yield os.path.join(dirpath, f)
+    for top in ('viabel_tpu_torch', 'tools'):
+        for dirpath, _, files in os.walk(os.path.join(ROOT, top)):
+            for f in files:
+                if f.endswith('.py'):
+                    yield os.path.join(dirpath, f)
     yield os.path.join(ROOT, 'chip_smoke.py')
 
 

@@ -302,3 +302,151 @@ def test_gaussian_sample_score_partials_ncp_and_funnel_match_plain(
                                atol=tol['lw_atol'], rtol=lw_rtol)
     _assert_stats_close(ops.combine_partials(parts),
                         ops.combine_partials_plain(parts_p), tol['rtol'])
+
+
+# --------------------------------------------------------------------------
+# the redesigned K1 and philox_normal: instances, tiles and alignment
+# --------------------------------------------------------------------------
+
+# more chunks than the card holds blocks at once (132 SMs x 8 blocks at
+# most), so that every block strides on to a second chunk
+N_ABOVE_RESIDENT = 132 * 8 * 2048 + 2048 * 5 + 301
+
+
+def _off_alignment(z):
+    """A contiguous copy of z whose address is 8 bytes off a multiple of
+    16: a slice of a larger tensor."""
+    off = 8 // z.element_size()
+    buf = torch.empty(z.numel() + off, dtype=z.dtype, device=z.device)
+    out = buf[off:].view(z.shape)
+    out.copy_(z)
+    assert out.data_ptr() % 16 == 8 and out.is_contiguous()
+    return out
+
+
+def _model_at(name, dtype, device):
+    """(model, mean, log_scale, lw rtol, statistics rtol) for the d = 2
+    instance (funnel, robust regression), the runtime-d one (a d = 3
+    regression) and the staged d = 10 one (eight-schools CP)."""
+    from viabel_tpu_torch.models import (data_generator_linear,
+                                         linear_regression_model)
+    tol = TOL[dtype]
+    if name == 'funnel':
+        model, mean, log_scale = _ncp_or_funnel('funnel', dtype, device)
+        return model, mean, log_scale, FUNNEL_LW_RTOL[dtype], tol['rtol']
+    if name == 'cp':
+        model, _, mean, log_scale = _inputs(1, dtype, device)
+        return model, mean, log_scale, tol['lw_rtol'], tol['rtol']
+    if name == 'robust':
+        model = _regression(True)
+    else:
+        data = data_generator_linear(N=40, D=3, seed=7)
+        model = linear_regression_model(data['X'], data['Y'])
+    return (model,) + _fit(model, dtype, device) + (
+        tol['lw_rtol'], REGRESSION_STATS_RTOL[dtype])
+
+
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
+@pytest.mark.parametrize('aligned', [True, False])
+@pytest.mark.parametrize('n', [1, 2047, 2048 * 3 + 17, N_ABOVE_RESIDENT])
+@pytest.mark.parametrize('name', ['funnel', 'robust', 'linear_d3', 'cp'])
+def test_transform_score_partials_instances_and_alignment(cuda, dtype,
+                                                          aligned, n, name):
+    model, mean, log_scale, lw_rtol, stats_rtol = _model_at(name, dtype, cuda)
+    fam = mean_field_t_variational_family(model.dim, 40.0)
+    z = fam.base_sample(torch.Generator(device=cuda).manual_seed(n), n, dtype)
+    if not aligned:
+        z = _off_alignment(z)
+    lw, parts = ops.transform_score_partials(
+        z, mean, log_scale, model.kernel, model.kernel_data, 40.0)
+    lw_p, parts_p = ops.transform_score_partials_plain(
+        z, mean, log_scale, model.kernel, model.kernel_data, 40.0)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(lw.cpu().numpy(), lw_p.cpu().numpy(),
+                               atol=TOL[dtype]['lw_atol'], rtol=lw_rtol)
+    np.testing.assert_array_equal(parts[:, 0].cpu().numpy(),
+                                  parts_p[:, 0].cpu().numpy())
+    _assert_stats_close(ops.combine_partials(parts),
+                        ops.combine_partials_plain(parts_p), stats_rtol)
+
+
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
+def test_score_chunks_with_nan_and_underflow(cuda, dtype):
+    """A NaN among the draws reaches its chunk's max and the statistics,
+    and a chunk whose weights all underflow against the global max stays
+    finite, as with the plain version.  z[:, 1] = -12 puts the chunk's lw
+    near -1e15, the lowest at which float32 still holds the squared
+    deviations; the next test goes beyond."""
+    model, _, mean, log_scale = _inputs(1, dtype, cuda)
+    n = 2048 * 6
+    z = torch.randn((n, model.dim), dtype=dtype, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(3))
+    z[2048 * 2: 2048 * 3, 1] = -12.0    # tau tiny: lw far below the rest
+    args = (mean, log_scale, model.kernel, model.kernel_data, None)
+    lw, parts = ops.transform_score_partials(z, *args)
+    lw_p, parts_p = ops.transform_score_partials_plain(z, *args)
+    stats = ops.combine_partials(parts)
+    assert torch.isfinite(parts).all() and torch.isfinite(stats).all()
+    _assert_stats_close(stats, ops.combine_partials_plain(parts_p),
+                        TOL[dtype]['rtol'])
+    z[2048 * 4 + 5, 3] = float('nan')
+    _, parts = ops.transform_score_partials(z, *args)
+    assert torch.isnan(parts[4, 1:]).all() and parts[4, 0] == 2048
+    assert torch.isfinite(parts[[0, 1, 2, 3, 5]]).all()
+    assert torch.isnan(ops.combine_partials(parts)).any()
+
+
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
+def test_score_chunk_beyond_float32_range_matches_plain(cuda, dtype):
+    """At z[:, 1] = -30 tau is ~1e-14 and the chunk's lw ~ -1e31: the
+    squared deviations of lw leave float32's range.  The kernel's partials
+    are then non-finite exactly where the plain version's are, the rest
+    agree, and in float64 everything is finite."""
+    model, _, mean, log_scale = _inputs(1, dtype, cuda)
+    n = 2048 * 6
+    z = torch.randn((n, model.dim), dtype=dtype, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(3))
+    z[2048 * 2: 2048 * 3, 1] = -30.0
+    args = (mean, log_scale, model.kernel, model.kernel_data, None)
+    lw, parts = ops.transform_score_partials(z, *args)
+    lw_p, parts_p = ops.transform_score_partials_plain(z, *args)
+    tol = TOL[dtype]
+    np.testing.assert_allclose(lw.cpu().numpy(), lw_p.cpu().numpy(),
+                               atol=tol['lw_atol'], rtol=tol['lw_rtol'])
+    got, want = parts.cpu().double().numpy(), parts_p.cpu().double().numpy()
+    finite = np.isfinite(want)
+    np.testing.assert_array_equal(np.isfinite(got), finite)
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    assert finite[:, [0, 1, 2, 4]].all()    # count, max and the means
+    assert finite.all() == (dtype == torch.float64)
+    np.testing.assert_allclose(got[:, [1, 2, 4]], want[:, [1, 2, 4]],
+                               rtol=tol['rtol'])
+    np.testing.assert_allclose(got[finite], want[finite],
+                               rtol=100 * tol['rtol'], atol=1e-30)
+    stats = ops.combine_partials(parts).cpu().double().numpy()
+    stats_p = ops.combine_partials_plain(parts_p).cpu().double().numpy()
+    np.testing.assert_array_equal(np.isfinite(stats), np.isfinite(stats_p))
+    ok = np.isfinite(stats_p)
+    np.testing.assert_allclose(stats[ok], stats_p[ok], rtol=tol['rtol'])
+
+
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
+@pytest.mark.parametrize('start', [1, 2 ** 32 - 12345])
+@pytest.mark.parametrize('n,d', [(100_003, 1), (50_001, 2), (33_335, 3),
+                                 (25_001, 4), (20_001, 5), (100_001, 10),
+                                 (9_091, 11), (803, 131), (5, 5001)])
+def test_philox_normal_tiles_match_plain(cuda, dtype, start, n, d):
+    """Every row width class: one group with a dropped pair (d = 1, 2),
+    whole groups (4), a short last group (3, 5, 10, 11), tiles that start
+    off 16-byte alignment (131) and rows cut into column segments (5001),
+    with an odd n d and a start that is odd or crosses 2^32."""
+    from viabel_tpu_torch.ops import gaussian_lw as gops
+    from viabel_tpu_torch.ops.philox import philox_normal_plain
+    before = gops.launches['philox_normal']
+    z = gops.philox_normal(n, d, 99, 3, start, dtype, cuda)
+    assert gops.launches['philox_normal'] == before + 1
+    z_p = philox_normal_plain(n, d, 99, 3, start, dtype, cuda)
+    torch.cuda.synchronize()
+    tol = 1e-12 if dtype == torch.float64 else 2e-6  # last-bit log/sincos
+    np.testing.assert_allclose(z.cpu().numpy(), z_p.cpu().numpy(), rtol=tol,
+                               atol=tol)

@@ -70,3 +70,37 @@ def test_ncp_to_cp():
     np.testing.assert_allclose(
         te.eight_schools_ncp_to_cp(torch.as_tensor(z)).numpy(), want,
         rtol=1e-15)
+
+
+def test_kernel_data_is_a_snapshot_with_one_cache():
+    """The model copies its data when it is made, `kernel_data_like` and
+    `log_prob` share one converted copy per dtype, and other data gives
+    another `ModelSpec`."""
+    from viabel_tpu_torch.models import (funnel_model,
+                                         robust_regression_model)
+    from viabel_tpu_torch.ops import lw_stats as ops
+
+    y, sigma = np.arange(8.0), np.full(8, 3.0)
+    t = te.eight_schools_cp_model(y, sigma)
+    z = torch.as_tensor(_points(4), dtype=torch.float32)
+    before = t.log_prob(z)
+    y[0] = 100.0    # the caller's array changes after the model was made
+    np.testing.assert_array_equal(t.kernel_data[0].numpy(), np.arange(8.0))
+    np.testing.assert_array_equal(t.log_prob(z).numpy(), before.numpy())
+    like = t.kernel_data_like(z)
+    assert all(a.dtype == torch.float32 for a in like)
+    assert all(a is b for a, b in zip(like, t.kernel_data_like(z)))
+    np.testing.assert_array_equal(like[0].numpy(),
+                                  np.arange(8.0, dtype=np.float32))
+    spec, held = ops.model_spec(t.kernel, like, 'cpu', torch.float32)
+    assert spec.a == like[0].data_ptr() == held[0].data_ptr()  # no copy
+    changed = te.eight_schools_cp_model(y, sigma)
+    spec2, held2 = ops.model_spec(changed.kernel, changed.kernel_data_like(z),
+                                  'cpu', torch.float32)
+    assert spec2.a != spec.a and float(held2[0][0]) == 100.0
+    # scalars ride along; a model without tensors returns its kernel_data
+    robust = robust_regression_model()
+    rl = robust.kernel_data_like(z)
+    assert rl[0].dtype == torch.float32 and rl[2:] == robust.kernel_data[2:]
+    funnel = funnel_model()
+    assert funnel.kernel_data_like(z) is funnel.kernel_data

@@ -6,13 +6,30 @@
 // instantiate.  ops/_build.py hashes this header into every library
 // built from csrc/, so an edit here rebuilds both.
 //
+// The score kernel's design for this card.  A sample costs several hundred
+// instructions against 4 d + 4 bytes, so the kernel is bound by the rate
+// at which the SMs issue instructions, not by device memory (PERF.md has
+// the times).  Hence: what does not depend on the sample is computed once
+// a launch (reciprocals of sigma, tau's per sample, of df and of the
+// scales; the summed log sigma); the Student-t base takes one logarithm
+// for two coordinates; K1's z (d = 10) comes through a pair of
+// shared-memory sub-tiles filled by 16-byte cp.async copies, every lane on
+// the next 16 bytes, each warp copying the rows its own lanes will score
+// (so a warp barrier suffices) while it scores the sub-tile before, and
+// each thread then reads its row as 8- or 16-byte words; d = 2 has its own
+// instance and reads a row as one word; a chunk's statistics merge by warp
+// shuffles with two block barriers, and full chunks, whose groups have
+// equal counts, merge without a division; the grid is what the card holds
+// at once, each block walking chunks in a stride.
+//
 // Partials layout, one row of NPART values per chunk of CHUNK consecutive
 // samples (the last chunk may be ragged):
 //   [count, m, mean_e, M2_e, mean_lw, M2_lw]
 // with m the chunk max of lw, e = exp(lw - m)^alpha, mean/M2 the mean and
-// sum of squared deviations.  Welford's update within a thread and Chan's
-// rule across threads and chunks: the one-pass sum-of-squares form cancels
-// in f32 and is never used.
+// sum of squared deviations.  Within a thread two passes over its values
+// (Welford's update in a ragged chunk) and Chan's rule across threads and
+// chunks: the one-pass sum-of-squares form cancels in f32 and is never
+// used.
 
 #pragma once
 
@@ -23,11 +40,25 @@
 namespace bound_pass {
 
 constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
 constexpr int ITEMS = 8;
 constexpr int CHUNK = THREADS * ITEMS;
 constexpr int NPART = 6;
-constexpr int MAX_GRID = 4096;
+constexpr int MAX_GRID = 4096;  // K3's grid
 constexpr int MAX_DIM = 32;  // the largest d a score kernel takes
+constexpr int SCHOOLS = 8;   // J of the eight-schools densities
+// the model data a score kernel stages beside mean and scale, in bytes;
+// equals MAX_STAGED_BYTES in ops/limits.py
+constexpr int MAX_STAGED_BYTES = 96 * 1024;
+// K1's double buffer: one sub-tile of THREADS rows of z in flight while
+// the other is scored
+constexpr int STAGES = 2;
+// blocks an SM must hold of a compile-time-d instance (64 registers a
+// thread at 4) and of the runtime-d one, whose 32-slot arrays need more
+constexpr int MIN_BLOCKS_FIXED_D = 4;
+constexpr int MIN_BLOCKS_RUNTIME_D = 2;
+static_assert(ITEMS % STAGES == 0, "a chunk starts in slot 0");
+constexpr int MAX_DEVICES = 64;
 
 constexpr double LOG_2PI = 1.8378770664093453;
 constexpr double TWO_PI = 6.283185307179586;
@@ -150,45 +181,171 @@ __device__ void block_chan(double& n, T& me, T& m2e, T& ml, T& m2l,
   __syncthreads();
 }
 
+// ---------------------------------------------------------------------------
+// A chunk's statistics (K1, K2 and K3), by warp shuffles with two block
+// barriers a chunk.
+// ---------------------------------------------------------------------------
+
+// Chan's rule on whole Moments, counts in T (a chunk's counts are at most
+// CHUNK, exact in float): merge b into a.
 template <typename T>
-struct SharedStats {
-  T max_buf[THREADS];
-  double n[THREADS];
-  T me[THREADS], m2e[THREADS], ml[THREADS], m2l[THREADS];
+__device__ __forceinline__ void merge(Moments<T>& a, const Moments<T>& b) {
+  if (b.count == T(0)) return;
+  T n = a.count + b.count;
+  T wb = b.count / n, wab = a.count * b.count / n;
+  T de = b.mean_e - a.mean_e, dl = b.mean_lw - a.mean_lw;
+  a.mean_e += de * wb;
+  a.m2_e = (a.m2_e + b.m2_e) + de * de * wab;
+  a.mean_lw += dl * wb;
+  a.m2_lw = (a.m2_lw + b.m2_lw) + dl * dl * wab;
+  a.count = n;
+}
+
+// The same for two groups of one count c: n_b / n = 1 / 2 and
+// n_a n_b / n = c / 2, so no division; symmetric in a and b.
+template <typename T>
+__device__ __forceinline__ void merge_equal(Moments<T>& a,
+                                            const Moments<T>& b) {
+  T half = T(0.5) * a.count;
+  T de = b.mean_e - a.mean_e, dl = b.mean_lw - a.mean_lw;
+  a.mean_e = T(0.5) * (a.mean_e + b.mean_e);
+  a.m2_e = (a.m2_e + b.m2_e) + de * de * half;
+  a.mean_lw = T(0.5) * (a.mean_lw + b.mean_lw);
+  a.m2_lw = (a.m2_lw + b.m2_lw) + dl * dl * half;
+  a.count += a.count;
+}
+
+// Butterfly of merges over the first WIDTH lanes of a warp (every lane of
+// the warp takes part in the shuffles); every one of those lanes ends with
+// the merged group.  EQUAL: all groups have one count.
+template <typename T, bool EQUAL, int WIDTH>
+__device__ __forceinline__ Moments<T> warp_merge(Moments<T> s) {
+  const unsigned all = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int k = 1; k < WIDTH; k <<= 1) {
+    Moments<T> o;
+    o.count = __shfl_xor_sync(all, s.count, k);
+    o.mean_e = __shfl_xor_sync(all, s.mean_e, k);
+    o.m2_e = __shfl_xor_sync(all, s.m2_e, k);
+    o.mean_lw = __shfl_xor_sync(all, s.mean_lw, k);
+    o.m2_lw = __shfl_xor_sync(all, s.m2_lw, k);
+    if (EQUAL) {
+      merge_equal(s, o);
+    } else {
+      if (lane & k) {  // both lanes merge the upper group into the lower
+        Moments<T> t = s;
+        s = o;
+        o = t;
+      }
+      merge(s, o);
+    }
+  }
+  return s;
+}
+
+template <typename T>
+struct WarpStats {  // one slot a warp
+  T max_buf[WARPS];
+  T count[WARPS], me[WARPS], m2e[WARPS], ml[WARPS], m2l[WARPS];
 };
 
 // The chunk's partial row from the log-weights each thread holds in
-// registers (v[k] valid where ok[k]).
-template <typename T>
-__device__ void chunk_partials(const T (&v)[ITEMS], const bool (&ok)[ITEMS],
-                               T alpha, SharedStats<T>& sh, T* out_row) {
-  T tmax = T(-INFINITY);
+// registers.  FULL: every v[k] is valid, so all groups have equal counts
+// at every level, a thread's moments come from two passes over its
+// registers, and no merge divides; else v[k] is valid where ok[k] and the
+// general rules apply.
+template <typename T, bool FULL>
+__device__ __forceinline__ void chunk_partials_of(const T (&v)[ITEMS],
+                                                  const bool (&ok)[ITEMS],
+                                                  T alpha, WarpStats<T>& sh,
+                                                  T* out_row) {
+  const unsigned all = 0xffffffffu;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  T m = T(-INFINITY);
 #pragma unroll
   for (int k = 0; k < ITEMS; ++k)
-    if (ok[k]) tmax = nan_max(tmax, v[k]);
-  T m = block_max<T, THREADS>(tmax, sh.max_buf);
+    if (FULL || ok[k]) m = nan_max(m, v[k]);
+#pragma unroll
+  for (int k = 16; k > 0; k >>= 1)
+    m = nan_max(m, __shfl_xor_sync(all, m, k));
+  if (lane == 0) sh.max_buf[warp] = m;
+  __syncthreads();
+  m = sh.max_buf[0];
+#pragma unroll
+  for (int w = 1; w < WARPS; ++w) m = nan_max(m, sh.max_buf[w]);
 
   Moments<T> s = {T(0), T(0), T(0), T(0), T(0)};
+  if (FULL) {
+    T e[ITEMS];
+    T sum_e = T(0), sum_lw = T(0);
 #pragma unroll
-  for (int k = 0; k < ITEMS; ++k)
-    if (ok[k]) welford(s, pow_alpha(v[k] - m, alpha), v[k]);
-
-  double n = double(s.count);
-  block_chan<T, THREADS>(n, s.mean_e, s.m2_e, s.mean_lw, s.m2_lw, sh.n, sh.me,
-                         sh.m2e, sh.ml, sh.m2l);
-  if (threadIdx.x == 0) {
-    out_row[0] = T(n);
-    out_row[1] = m;
-    out_row[2] = s.mean_e;
-    out_row[3] = s.m2_e;
-    out_row[4] = s.mean_lw;
-    out_row[5] = s.m2_lw;
+    for (int k = 0; k < ITEMS; ++k) {
+      e[k] = pow_alpha(v[k] - m, alpha);
+      sum_e += e[k];
+      sum_lw += v[k];
+    }
+    s.count = T(ITEMS);
+    s.mean_e = sum_e * T(1.0 / ITEMS);
+    s.mean_lw = sum_lw * T(1.0 / ITEMS);
+#pragma unroll
+    for (int k = 0; k < ITEMS; ++k) {
+      T de = e[k] - s.mean_e, dl = v[k] - s.mean_lw;
+      s.m2_e = d_fma(de, de, s.m2_e);
+      s.m2_lw = d_fma(dl, dl, s.m2_lw);
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < ITEMS; ++k)
+      if (ok[k]) welford(s, pow_alpha(v[k] - m, alpha), v[k]);
   }
+  s = warp_merge<T, FULL, 32>(s);
+  if (lane == 0) {
+    sh.count[warp] = s.count;
+    sh.me[warp] = s.mean_e;
+    sh.m2e[warp] = s.m2_e;
+    sh.ml[warp] = s.mean_lw;
+    sh.m2l[warp] = s.m2_lw;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    Moments<T> w = {T(0), T(0), T(0), T(0), T(0)};
+    if (lane < WARPS) {
+      w.count = sh.count[lane];
+      w.mean_e = sh.me[lane];
+      w.m2_e = sh.m2e[lane];
+      w.mean_lw = sh.ml[lane];
+      w.m2_lw = sh.m2l[lane];
+    }
+    w = warp_merge<T, FULL, WARPS>(w);
+    if (lane == 0) {
+      out_row[0] = w.count;
+      out_row[1] = m;
+      out_row[2] = w.mean_e;
+      out_row[3] = w.m2_e;
+      out_row[4] = w.mean_lw;
+      out_row[5] = w.m2_lw;
+    }
+  }
+}
+
+// The partial row of the chunk of samples [base, base + CHUNK) of n.
+template <typename T>
+__device__ __forceinline__ void chunk_partials(const T (&v)[ITEMS],
+                                               const bool (&ok)[ITEMS],
+                                               int64_t base, int64_t n,
+                                               T alpha, WarpStats<T>& sh,
+                                               T* out_row) {
+  if (base + CHUNK <= n)
+    chunk_partials_of<T, true>(v, ok, alpha, sh, out_row);
+  else
+    chunk_partials_of<T, false>(v, ok, alpha, sh, out_row);
 }
 
 // ---------------------------------------------------------------------------
 // Model log densities.  The model's data sits in shared memory (staged by
-// the score kernel); the sample in registers.
+// the score kernel) with what the kernel derives from it once a launch
+// (ModelConsts); the sample in registers.
 // ---------------------------------------------------------------------------
 
 enum ModelKind {
@@ -223,117 +380,139 @@ struct ModelArgs {
   const T* a;
   const T* b;
   T df, half_df1, lik_lognorm, noise_scale, log_noise, prior_std, log_prior;
+  // reciprocals, taken once on the host in double (0 where unused)
+  T inv_df, inv_noise, inv_prior;
 
   __host__ explicit ModelArgs(const ModelSpec& m)
       : kind(m.kind), n_rows(m.n_rows), student_t(m.student_t),
         a(static_cast<const T*>(m.a)), b(static_cast<const T*>(m.b)),
         df(T(m.df)), half_df1(T(m.half_df1)), lik_lognorm(T(m.lik_lognorm)),
         noise_scale(T(m.noise_scale)), log_noise(T(m.log_noise)),
-        prior_std(T(m.prior_std)), log_prior(T(m.log_prior)) {}
+        prior_std(T(m.prior_std)), log_prior(T(m.log_prior)),
+        inv_df(T(m.df > 0.0 ? 1.0 / m.df : 0.0)),
+        inv_noise(T(m.noise_scale > 0.0 ? 1.0 / m.noise_scale : 0.0)),
+        inv_prior(T(m.prior_std > 0.0 ? 1.0 / m.prior_std : 0.0)) {}
 
   // values of a and b, staged into shared memory
   __host__ __device__ int n_a(int d) const {
     return kind == FUNNEL ? 0 : kind == REGRESSION ? n_rows * d : n_rows;
   }
   __host__ __device__ int n_b() const { return kind == FUNNEL ? 0 : n_rows; }
+  __host__ __device__ bool schools() const {
+    return kind == EIGHT_SCHOOLS_CP || kind == EIGHT_SCHOOLS_NCP;
+  }
 };
 
-// Centred eight-schools at one sample, in the order of
-// viabel_tpu/models/eight_schools.py:70-78 (d = 10, J = 8).
+// What a block derives from the staged data once a launch: eight-schools'
+// 1 / sigma_j and sum_j log sigma_j.
+template <typename T>
+struct ModelConsts {
+  T inv_sigma[SCHOOLS];
+  T sum_log_sigma;
+};
+
+// The priors both eight-schools densities share: mu ~ N(0, 5) and
+// tau ~ half-Cauchy(0, 5) on tau = exp(log_tau), with its log-Jacobian.
+template <typename T>
+__device__ __forceinline__ T schools_prior(T mu, T log_tau, T tau) {
+  T zmu = mu * T(0.2);
+  T ts = tau * T(0.2);
+  return T(-0.5) * (zmu * zmu + T(LOG_2PI)) - T(LOG_5) -
+         d_log(T(PI_5) * (T(1) + ts * ts)) + log_tau;
+}
+
+// sum_j of a unit-free N(theta_j, sigma_j) log density of y_j from the sum
+// of squared z: -ss / 2 - J log(2 pi) / 2 - sum_j log sigma_j
+template <typename T>
+__device__ __forceinline__ T schools_sum(T ss, T sum_log_scale) {
+  return T(-0.5) * ss - (T(0.5 * SCHOOLS * LOG_2PI) + sum_log_scale);
+}
+
+// Centred eight-schools at one sample, the density of
+// viabel_tpu/models/eight_schools.py:70-78 (d = 10, J = 8), with one
+// reciprocal of tau a sample and the launch's 1 / sigma_j and summed
+// log sigma_j.
 template <typename T, int MAXD>
 __device__ __forceinline__ T eight_schools_cp(const T (&x)[MAXD],
-                                              const T* y, const T* sigma) {
-  static_assert(MAXD >= 10, "eight-schools CP needs d = 10");
-  constexpr int J = 8;
-  const T log_2pi = T(LOG_2PI);
+                                              const T* y,
+                                              const ModelConsts<T>& k) {
+  static_assert(MAXD >= 2 + SCHOOLS, "eight-schools CP needs d = 10");
   T mu = x[0], log_tau = x[1];
   T tau = d_exp(log_tau);
-  T zmu = mu / T(5);
-  T lp = T(-0.5) * (zmu * zmu + log_2pi) - T(LOG_5);
-  T ts = tau / T(5);
-  lp += -d_log(T(PI_5) * (T(1) + ts * ts)) + log_tau;
+  T inv_tau = T(1) / tau;
+  T lp = schools_prior(mu, log_tau, tau);
   T log_scale_tau = d_log(tau);  // log(exp(log_tau)), as the JAX density
   T s1 = T(0), s2 = T(0);
 #pragma unroll
-  for (int j = 0; j < J; ++j) {
-    T zt = (x[2 + j] - mu) / tau;
-    s1 += T(-0.5) * (zt * zt + log_2pi) - log_scale_tau;
+  for (int j = 0; j < SCHOOLS; ++j) {
+    T zt = (x[2 + j] - mu) * inv_tau;
+    s1 = d_fma(zt, zt, s1);
+    T zy = (y[j] - x[2 + j]) * k.inv_sigma[j];
+    s2 = d_fma(zy, zy, s2);
   }
-  lp += s1;
-#pragma unroll
-  for (int j = 0; j < J; ++j) {
-    T zy = (y[j] - x[2 + j]) / sigma[j];
-    s2 += T(-0.5) * (zy * zy + log_2pi) - d_log(sigma[j]);
-  }
-  return lp + s2;
+  return lp + schools_sum(s1, T(SCHOOLS) * log_scale_tau) +
+         schools_sum(s2, k.sum_log_sigma);
 }
 
-// Bayesian regression at one coefficient vector beta (d values), in the
-// order of viabel_tpu/ops/row_models.py:55-68 at 2e6dc2c^ and
+// Bayesian regression at one coefficient vector beta (d values), the
+// density of viabel_tpu/ops/row_models.py:55-68 at 2e6dc2c^ and
 // viabel_tpu_torch/models/regression.py: mu_k = sum_j x_kj beta_j in plain
 // FMA loops (no tensor cores, so no TF32), then a Gaussian or Student-t
-// likelihood of scale noise_scale and an N(0, prior_std) prior.  x and y
-// are in shared memory; every thread of a warp reads the same row, which
-// the hardware broadcasts.
+// likelihood of scale noise_scale and an N(0, prior_std) prior, the
+// scales and df by their reciprocals.  x and y are in shared memory; every
+// thread of a warp reads the same row, which the hardware broadcasts.
 template <typename T, int MAXD>
 __device__ __forceinline__ T regression(const T (&beta)[MAXD], int d,
                                         const T* x, const T* y,
                                         const ModelArgs<T>& m) {
-  const T log_2pi = T(LOG_2PI);
-  T loglik = T(0);
+  T acc = T(0);  // sum of z^2 (Gaussian) or of log1p(z^2 / df) (Student-t)
   for (int k = 0; k < m.n_rows; ++k) {
     const T* xk = x + k * d;
     T mu = T(0);
 #pragma unroll
     for (int j = 0; j < MAXD; ++j)
       if (j < d) mu = d_fma(xk[j], beta[j], mu);
-    T z = (y[k] - mu) / m.noise_scale;
+    T z = (y[k] - mu) * m.inv_noise;
     if (m.student_t)
-      loglik += m.lik_lognorm - m.half_df1 * d_log1p(z * z / m.df) -
-                m.log_noise;
+      acc += d_log1p(z * z * m.inv_df);
     else
-      loglik += T(-0.5) * (z * z + log_2pi) - m.log_noise;
+      acc = d_fma(z, z, acc);
   }
-  T logprior = T(0);
+  T n_rows = T(m.n_rows);
+  T loglik = m.student_t
+                 ? n_rows * (m.lik_lognorm - m.log_noise) - m.half_df1 * acc
+                 : T(-0.5) * acc - n_rows * (T(0.5 * LOG_2PI) + m.log_noise);
+  T ss = T(0);
 #pragma unroll
   for (int j = 0; j < MAXD; ++j) {
     if (j < d) {
-      T zb = beta[j] / m.prior_std;
-      logprior += T(-0.5) * (zb * zb + log_2pi) - m.log_prior;
+      T zb = beta[j] * m.inv_prior;
+      ss = d_fma(zb, zb, ss);
     }
   }
-  return loglik + logprior;
+  return loglik + (T(-0.5) * ss - T(d) * (T(0.5 * LOG_2PI) + m.log_prior));
 }
 
-// Non-centred eight-schools at one sample, in the order of
+// Non-centred eight-schools at one sample, the density of
 // viabel_tpu/models/eight_schools.py:99-108 (d = 10, J = 8):
 // theta = mu + tau * tt, an N(0, 1) prior on tt, and y ~ N(theta, sigma).
 template <typename T, int MAXD>
 __device__ __forceinline__ T eight_schools_ncp(const T (&x)[MAXD],
-                                               const T* y, const T* sigma) {
-  static_assert(MAXD >= 10, "eight-schools NCP needs d = 10");
-  constexpr int J = 8;
-  const T log_2pi = T(LOG_2PI);
+                                               const T* y,
+                                               const ModelConsts<T>& k) {
+  static_assert(MAXD >= 2 + SCHOOLS, "eight-schools NCP needs d = 10");
   T mu = x[0], log_tau = x[1];
   T tau = d_exp(log_tau);
-  T zmu = mu / T(5);
-  T lp = T(-0.5) * (zmu * zmu + log_2pi) - T(LOG_5);
-  T ts = tau / T(5);
-  lp += -d_log(T(PI_5) * (T(1) + ts * ts)) + log_tau;
+  T lp = schools_prior(mu, log_tau, tau);
   T s1 = T(0), s2 = T(0);
 #pragma unroll
-  for (int j = 0; j < J; ++j) {
+  for (int j = 0; j < SCHOOLS; ++j) {
     T tt = x[2 + j];
-    s1 += T(-0.5) * (tt * tt + log_2pi);
+    s1 = d_fma(tt, tt, s1);
+    T zy = (y[j] - d_fma(tau, tt, mu)) * k.inv_sigma[j];
+    s2 = d_fma(zy, zy, s2);
   }
-  lp += s1;
-#pragma unroll
-  for (int j = 0; j < J; ++j) {
-    T theta = mu + tau * x[2 + j];
-    T zy = (y[j] - theta) / sigma[j];
-    s2 += T(-0.5) * (zy * zy + log_2pi) - d_log(sigma[j]);
-  }
-  return lp + s2;
+  return lp + schools_sum(s1, T(0)) + schools_sum(s2, k.sum_log_sigma);
 }
 
 // Neal's funnel at one sample x = [mu, log_sigma], in the order of
@@ -352,20 +531,21 @@ __device__ __forceinline__ T funnel(const T (&x)[MAXD],
   return lp + (T(-0.5) * (zm * zm + log_2pi) - d_log(sigma));
 }
 
+// An instance of dimension MAXD compiles only the densities it can hold;
+// the host refuses an eight-schools launch at any d but 10.
 template <typename T, int MAXD>
 __device__ __forceinline__ T model_log_density(const T (&x)[MAXD], int d,
                                                const T* s_a, const T* s_b,
-                                               const ModelArgs<T>& m) {
-  switch (m.kind) {
-    case REGRESSION:
-      return regression<T, MAXD>(x, d, s_a, s_b, m);
-    case EIGHT_SCHOOLS_NCP:
-      return eight_schools_ncp<T, MAXD>(x, s_a, s_b);
-    case FUNNEL:
-      return funnel<T, MAXD>(x, m);
-    default:
-      return eight_schools_cp<T, MAXD>(x, s_a, s_b);
+                                               const ModelArgs<T>& m,
+                                               const ModelConsts<T>& k) {
+  if (m.kind == REGRESSION) return regression<T, MAXD>(x, d, s_a, s_b, m);
+  if (m.kind == FUNNEL) return funnel<T, MAXD>(x, m);
+  if constexpr (MAXD >= 2 + SCHOOLS) {
+    if (m.kind == EIGHT_SCHOOLS_NCP)
+      return eight_schools_ncp<T, MAXD>(x, s_a, k);
+    return eight_schools_cp<T, MAXD>(x, s_a, k);
   }
+  return T(0);
 }
 
 // ---------------------------------------------------------------------------
@@ -384,6 +564,7 @@ constexpr uint32_t PHILOX_M1 = 0xCD9E8D57u;
 constexpr uint32_t PHILOX_W0 = 0x9E3779B9u;
 constexpr uint32_t PHILOX_W1 = 0xBB67AE85u;
 
+// Each round's two 32 x 32 -> 64-bit products are one wide multiply each.
 __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
 #pragma unroll
   for (int r = 0; r < 10; ++r) {
@@ -391,9 +572,10 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
       k.x += PHILOX_W0;
       k.y += PHILOX_W1;
     }
-    uint32_t hi0 = __umulhi(PHILOX_M0, c.x), lo0 = PHILOX_M0 * c.x;
-    uint32_t hi1 = __umulhi(PHILOX_M1, c.z), lo1 = PHILOX_M1 * c.z;
-    c = make_uint4(hi1 ^ c.y ^ k.x, lo1, hi0 ^ c.w ^ k.y, lo0);
+    uint64_t p0 = uint64_t(PHILOX_M0) * c.x;
+    uint64_t p1 = uint64_t(PHILOX_M1) * c.z;
+    c = make_uint4(uint32_t(p1 >> 32) ^ c.y ^ k.x, uint32_t(p1),
+                   uint32_t(p0 >> 32) ^ c.w ^ k.y, uint32_t(p0));
   }
   return c;
 }
@@ -410,6 +592,10 @@ __device__ __forceinline__ T uniform_from_bits(uint32_t bits) {
   return T(1) - T(bits >> 8) * T(1.0 / 16777216.0);
 }
 
+// Full-precision logf, sqrtf and sincosf of the rounded angle 2 pi u, the
+// plain version's own steps: the normals then equal torch's to the last
+// bit on this card, which the funnel's log-weights need (a 2e-6 change in
+// z moves them past their tolerance; sincospi(2 u) made that change).
 template <typename T>
 __device__ __forceinline__ void box_muller(uint32_t b0, uint32_t b1, T& z0,
                                            T& z1) {
@@ -420,7 +606,8 @@ __device__ __forceinline__ void box_muller(uint32_t b0, uint32_t b1, T& z0,
   z1 = r * s;
 }
 
-// The 4 normals of group g, written to z[4g..4g+3] where below d.
+// The 4 normals of group g, written to z[4g..4g+3] where below d; the
+// second pair is computed only where the row keeps one of it.
 template <typename T, int MAXD>
 __device__ __forceinline__ void philox_normals(uint64_t sample,
                                                uint32_t offset, uint2 key,
@@ -429,46 +616,132 @@ __device__ __forceinline__ void philox_normals(uint64_t sample,
   for (int g = 0; g < (MAXD + 3) / 4; ++g) {
     if (4 * g < d) {
       uint4 b = philox_group(sample, uint32_t(g), offset, key);
-      T n0, n1, n2, n3;
+      T n0, n1;
       box_muller(b.x, b.y, n0, n1);
-      box_muller(b.z, b.w, n2, n3);
       z[4 * g] = n0;
-      if (4 * g + 1 < d) z[4 * g + 1] = n1;
-      if (4 * g + 2 < d) z[4 * g + 2] = n2;
-      if (4 * g + 3 < d) z[4 * g + 3] = n3;
+      if (4 * g + 1 < MAXD && 4 * g + 1 < d) z[4 * g + 1] = n1;
+      if (4 * g + 2 < MAXD && 4 * g + 2 < d) {
+        box_muller(b.z, b.w, n0, n1);
+        z[4 * g + 2] = n0;
+        if (4 * g + 3 < MAXD && 4 * g + 3 < d) z[4 * g + 3] = n1;
+      }
     }
   }
 }
 
 // ---------------------------------------------------------------------------
-// Base draws of the score kernel: each fills z[0..d) for sample i and
-// returns the base log density of z summed over the d coordinates.
+// Rows of z as words, and the asynchronous copies of K1's ring.
 // ---------------------------------------------------------------------------
 
-// K1: z read from device memory, standard normal or Student-t(df) base
+// N values of T as one aligned word of 4, 8 or 16 bytes
+template <typename T, int N>
+struct alignas(sizeof(T) * N) Pack {
+  T v[N];
+};
+
+// The widest word (up to 16 bytes) that divides a row of D values of T,
+// in values: 2 for float at d = 10 (rows 40 B apart) and at d = 2, 2 for
+// double at both.
+template <typename T, int D>
+__host__ __device__ constexpr int row_word() {
+  return (D * sizeof(T)) % 16 == 0 ? int(16 / sizeof(T))
+         : (D * sizeof(T)) % 8 == 0 ? int(8 / sizeof(T)) : 1;
+}
+
+// Whether a row of D values is one word, so that neighbouring threads'
+// direct loads are neighbouring words (d = 2); wider rows are staged.
+template <typename T, int D>
+__host__ __device__ constexpr bool row_is_word() {
+  return D > 0 && row_word<T, D>() == D;
+}
+
+// out[0..D) from a row whose address is a multiple of its word
+template <typename T, int D, int MAXD>
+__device__ __forceinline__ void read_row(const T* row, T (&out)[MAXD]) {
+  constexpr int W = row_word<T, D>();
+  const Pack<T, W>* words = reinterpret_cast<const Pack<T, W>*>(row);
+#pragma unroll
+  for (int k = 0; k < D / W; ++k) {
+    Pack<T, W> word = words[k];
+#pragma unroll
+    for (int e = 0; e < W; ++e) out[k * W + e] = word.v[e];
+  }
+}
+
+__device__ __forceinline__ void cp_async_16(void* smem, const void* global) {
+  unsigned dst = unsigned(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(global)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until none of this thread's committed groups is in flight
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// ---------------------------------------------------------------------------
+// Base draws of the score kernel: fill() gives z[0..d) of sample i, and
+// log_density() the base log density of z summed over the d coordinates.
+// ---------------------------------------------------------------------------
+
+template <typename T, int MAXD>
+__device__ __forceinline__ T normal_log_density(const T (&z)[MAXD], int d) {
+  T ss = T(0);
+#pragma unroll
+  for (int j = 0; j < MAXD; ++j)
+    if (j < d) ss = d_fma(z[j], z[j], ss);
+  return T(-0.5) * ss - T(d) * T(0.5 * LOG_2PI);
+}
+
+// K1: z read from device memory, standard normal or Student-t(df) base.
+// `aligned`: z's address is a multiple of 16, so rows may be read as words
+// and sub-tiles copied 16 bytes at a time; else every load is one value.
 template <typename T>
 struct LoadedDraws {
   const T* z;
-  int student_t;
-  T df, t_lognorm;
+  int student_t, aligned;
+  T inv_df, half_df1, t_lognorm;
 
-  template <int MAXD>
-  __device__ __forceinline__ T operator()(int64_t i, int d,
-                                          T (&out)[MAXD]) const {
-    const T* zi = z + i * d;
-    T lp = T(0);
-#pragma unroll
-    for (int j = 0; j < MAXD; ++j) {
-      if (j < d) {
-        T zj = zi[j];
-        out[j] = zj;
-        if (student_t)
-          lp += t_lognorm - T(0.5) * (df + T(1)) * d_log1p(zj * zj / df);
-        else
-          lp += zj * zj + T(LOG_2PI);
+  // wide rows of a compile-time d come through the shared-memory ring
+  template <int D_FIXED>
+  __host__ __device__ static constexpr bool staged() {
+    return D_FIXED > 0 && !row_is_word<T, D_FIXED>();
+  }
+
+  template <int MAXD, int D_FIXED>
+  __device__ __forceinline__ void fill(int64_t i, int d, T (&out)[MAXD]) const {
+    const T* row = z + i * d;
+    if constexpr (row_is_word<T, D_FIXED>()) {
+      if (aligned) {
+        read_row<T, D_FIXED, MAXD>(row, out);
+        return;
       }
     }
-    return student_t ? lp : T(-0.5) * lp;
+#pragma unroll
+    for (int j = 0; j < MAXD; ++j)
+      if (j < d) out[j] = __ldg(row + j);
+  }
+
+  // Student-t: sum_j log1p(z_j^2 / df) as the logarithm of the product of
+  // two neighbours' 1 + z^2 / df, half the logarithms; the product
+  // overflows float only beyond |z| = 1e10.
+  template <int MAXD>
+  __device__ __forceinline__ T log_density(const T (&zz)[MAXD], int d) const {
+    static_assert(MAXD % 2 == 0, "coordinates are taken in pairs");
+    if (!student_t) return normal_log_density<T, MAXD>(zz, d);
+    T acc = T(0);
+#pragma unroll
+    for (int j = 0; j < MAXD; j += 2) {
+      if (j < d) {
+        T a = d_fma(zz[j] * zz[j], inv_df, T(1));
+        T b = j + 1 < d ? d_fma(zz[j + 1] * zz[j + 1], inv_df, T(1)) : T(1);
+        acc += d_log(a * b);
+      }
+    }
+    return T(d) * t_lognorm - half_df1 * acc;
   }
 };
 
@@ -478,46 +751,96 @@ struct PhiloxDraws {
   uint2 key;
   uint32_t offset;
 
-  template <int MAXD>
-  __device__ __forceinline__ T operator()(int64_t i, int d,
-                                          T (&out)[MAXD]) const {
+  template <int D_FIXED>
+  __host__ __device__ static constexpr bool staged() {
+    return false;
+  }
+
+  template <int MAXD, int D_FIXED>
+  __device__ __forceinline__ void fill(int64_t i, int d, T (&out)[MAXD]) const {
     philox_normals<T, MAXD>(uint64_t(i), offset, key, d, out);
-    T ss = T(0);
-#pragma unroll
-    for (int j = 0; j < MAXD; ++j)
-      if (j < d) ss += out[j] * out[j] + T(LOG_2PI);
-    return T(-0.5) * ss;
+  }
+
+  template <int MAXD>
+  __device__ __forceinline__ T log_density(const T (&zz)[MAXD], int d) const {
+    return normal_log_density<T, MAXD>(zz, d);
   }
 };
 
-// Shared memory the score kernel stages: mean, exp(log_scale) (MAXD each),
-// then the model's a and b arrays.
-template <typename T, int MAXD>
+// Dynamic shared memory of the score kernel: the ring (a staged instance
+// only), then mean and exp(log_scale) (MAXD each), then the model's a and
+// b arrays.
+template <typename T, int MAXD, bool STAGED>
+__host__ __device__ constexpr size_t ring_bytes() {
+  return STAGED ? sizeof(T) * STAGES * THREADS * MAXD : 0;
+}
+template <typename T, int MAXD, bool STAGED>
 inline size_t score_smem_bytes(const ModelArgs<T>& m, int d) {
-  return sizeof(T) * (2 * MAXD + m.n_a(d) + m.n_b());
+  return ring_bytes<T, MAXD, STAGED>() +
+         sizeof(T) * (2 * MAXD + m.n_a(d) + m.n_b());
+}
+
+// Copy this warp's 32 rows of sub-tile k (THREADS rows of D values) of
+// chunk c into their ring slot, 16 bytes a lane and a step, if the chunk
+// exists and the sub-tile is whole; a ragged one is read directly.  A warp
+// copies what its own lanes will read, so a warp barrier orders the ring
+// and no block barrier is needed.  Always commits a group, so that every
+// thread counts the same groups.
+template <typename T, int D>
+__device__ __forceinline__ void issue_sub_tile(const T* z, T* ring,
+                                               int64_t c, int k,
+                                               int64_t n, int64_t n_chunks) {
+  constexpr int WORDS = 32 * D * int(sizeof(T)) / 16;
+  const int lane = threadIdx.x & 31, warp_row = threadIdx.x & ~31;
+  int64_t first = c * CHUNK + int64_t(k) * THREADS;
+  if (c < n_chunks && first + THREADS <= n) {
+    const char* src =
+        reinterpret_cast<const char*>(z + (first + warp_row) * D);
+    char* dst = reinterpret_cast<char*>(
+        ring + ((k % STAGES) * THREADS + warp_row) * D);
+    for (int w = lane; w < WORDS; w += 32)
+      cp_async_16(dst + 16 * w, src + 16 * w);
+  }
+  cp_async_commit();
 }
 
 // The score kernel of K1 and K2: x = mean + exp(log_scale) z,
 // lw = log p(x) - log q(x) with log q = base log density of z minus
 // sum(log_scale); lw is written and reduced to one partials row per chunk.
-// One thread per sample (ITEMS samples a thread, THREADS apart),
-// grid-stride over chunks.  With D_FIXED > 0 the dimension is that
-// compile-time constant and every `j < d` guard folds away; with
-// D_FIXED = 0 it is the runtime d_arg <= MAXD.
+// One thread per sample (ITEMS samples a thread, THREADS apart), the
+// blocks that the card holds at once striding over the chunks.  With
+// D_FIXED > 0 the dimension is that compile-time constant and every
+// `j < d` guard folds away; with D_FIXED = 0 it is the runtime
+// d_arg <= MAXD.  A staged instance (K1 at d = 10) keeps one
+// sub-tile of z in flight, across chunk boundaries too: for sub-tile k a warp
+// waits for its own copies, one warp barrier makes them visible and frees
+// the slot scored last, which the next copy then takes.
 template <typename T, int MAXD, int D_FIXED, class Draws>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(
+    THREADS, D_FIXED > 0 ? MIN_BLOCKS_FIXED_D : MIN_BLOCKS_RUNTIME_D)
     score_partials_kernel(Draws draws, const T* __restrict__ mean,
                           const T* __restrict__ log_scale, int d_arg,
                           ModelArgs<T> model, int64_t n, int64_t n_chunks,
                           T alpha, T* __restrict__ lw,
                           T* __restrict__ partials) {
+  constexpr bool STAGED = Draws::template staged<D_FIXED>();
   const int d = D_FIXED > 0 ? D_FIXED : d_arg;
-  __shared__ SharedStats<T> sh;
+  __shared__ WarpStats<T> sh;
+  __shared__ ModelConsts<T> consts;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* s_mean = reinterpret_cast<T*>(smem_raw);
+  T* ring = reinterpret_cast<T*>(smem_raw);
+  T* s_mean = reinterpret_cast<T*>(smem_raw + ring_bytes<T, MAXD, STAGED>());
   T* s_scale = s_mean + MAXD;
   T* s_a = s_scale + MAXD;
   T* s_b = s_a + model.n_a(d);
+
+  bool use_ring = false;
+  if constexpr (STAGED) {
+    use_ring = draws.aligned != 0;
+    if (use_ring)
+      issue_sub_tile<T, D_FIXED>(draws.z, ring, blockIdx.x, 0, n, n_chunks);
+  }
+
   for (int j = threadIdx.x; j < MAXD; j += THREADS) {
     s_mean[j] = j < d ? mean[j] : T(0);
     s_scale[j] = j < d ? d_exp(log_scale[j]) : T(0);
@@ -528,6 +851,17 @@ __global__ void __launch_bounds__(THREADS)
     s_b[j] = model.b[j];
   T sum_log_scale = T(0);
   for (int j = 0; j < d; ++j) sum_log_scale += log_scale[j];
+  if (model.schools() && threadIdx.x < SCHOOLS) {
+    T sigma = model.b[threadIdx.x];
+    consts.inv_sigma[threadIdx.x] = T(1) / sigma;
+    // the eight logarithms, summed in order by the warp's first lane
+    T log_sigma = d_log(sigma);
+    T total = T(0);
+#pragma unroll
+    for (int j = 0; j < SCHOOLS; ++j)
+      total += __shfl_sync((1u << SCHOOLS) - 1u, log_sigma, j);
+    if (threadIdx.x == 0) consts.sum_log_sigma = total;
+  }
   __syncthreads();
 
   for (int64_t c = blockIdx.x; c < n_chunks; c += gridDim.x) {
@@ -539,16 +873,32 @@ __global__ void __launch_bounds__(THREADS)
       int64_t i = base + int64_t(k) * THREADS + threadIdx.x;
       ok[k] = i < n;
       v[k] = T(0);
-      if (!ok[k]) continue;
       T x[MAXD];
-      T logq = draws(i, d, x) - sum_log_scale;
+      bool have_row = false;
+      if constexpr (STAGED) {
+        if (use_ring) {
+          cp_async_wait();
+          __syncwarp();
+          issue_sub_tile<T, D_FIXED>(
+              draws.z, ring, k + 1 < ITEMS ? c : c + gridDim.x,
+              (k + 1) % ITEMS, n, n_chunks);
+          if (base + int64_t(k + 1) * THREADS <= n) {  // a whole sub-tile
+            read_row<T, D_FIXED, MAXD>(
+                ring + ((k % STAGES) * THREADS + threadIdx.x) * D_FIXED, x);
+            have_row = true;
+          }
+        }
+      }
+      if (!ok[k]) continue;
+      if (!have_row) draws.template fill<MAXD, D_FIXED>(i, d, x);
+      T logq = draws.template log_density<MAXD>(x, d) - sum_log_scale;
 #pragma unroll
       for (int j = 0; j < MAXD; ++j)
         if (j < d) x[j] = s_mean[j] + s_scale[j] * x[j];
-      v[k] = model_log_density<T, MAXD>(x, d, s_a, s_b, model) - logq;
+      v[k] = model_log_density<T, MAXD>(x, d, s_a, s_b, model, consts) - logq;
       lw[i] = v[k];
     }
-    chunk_partials(v, ok, alpha, sh, partials + c * NPART);
+    chunk_partials(v, ok, base, n, alpha, sh, partials + c * NPART);
   }
 }
 
@@ -557,36 +907,74 @@ inline int grid_of(int64_t n_chunks) {
   return int(n_chunks < MAX_GRID ? n_chunks : MAX_GRID);
 }
 
-// Launch one instance of the score kernel.
+// The blocks of `kernel` that the current device holds at once, at
+// `threads` a block and `smem` bytes of dynamic shared memory; 0 and the
+// error in *err if CUDA refuses.
+template <class Kernel>
+int resident_blocks(Kernel kernel, int threads, size_t smem,
+                    cudaError_t* err) {
+  int dev = 0, sms = 0, per_sm = 0;
+  *err = cudaGetDevice(&dev);
+  if (*err == cudaSuccess)
+    *err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (*err == cudaSuccess)
+    *err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                         threads, smem);
+  return *err == cudaSuccess ? sms * per_sm : 0;
+}
+
+// Launch one instance of the score kernel.  The instance is allowed its
+// largest dynamic shared memory once a device, not at every launch.
 template <typename T, int MAXD, int D_FIXED, class Draws>
 int launch_score_at(const Draws& draws, const void* mean,
                     const void* log_scale, int d, const ModelSpec* spec,
                     long long n, double alpha, void* lw, void* partials,
                     void* stream) {
+  constexpr bool STAGED = Draws::template staged<D_FIXED>();
+  constexpr size_t MAX_SMEM = ring_bytes<T, MAXD, STAGED>() +
+                              sizeof(T) * 2 * MAXD + MAX_STAGED_BYTES;
+  static bool allowed[MAX_DEVICES] = {};
   ModelArgs<T> model(*spec);
-  size_t smem = score_smem_bytes<T, MAXD>(model, d);
+  if (model.schools() && (d != 2 + SCHOOLS || model.n_rows != SCHOOLS))
+    return int(cudaErrorInvalidValue);
+  size_t smem = score_smem_bytes<T, MAXD, STAGED>(model, d);
+  if (smem > MAX_SMEM) return int(cudaErrorInvalidValue);
   auto kernel = score_partials_kernel<T, MAXD, D_FIXED, Draws>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return int(err);
+  if (dev < 0 || dev >= MAX_DEVICES) return int(cudaErrorInvalidDevice);
+  if (!allowed[dev]) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(MAX_SMEM));
+    if (err != cudaSuccess) return int(err);
+    allowed[dev] = true;
+  }
+  int resident = resident_blocks(kernel, THREADS, smem, &err);
+  if (err != cudaSuccess) return int(err);
+  if (resident < 1) return int(cudaErrorLaunchOutOfResources);
   int64_t nc = chunks_of(n);
-  kernel<<<grid_of(nc), THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+  int grid = int(nc < resident ? nc : resident);
+  kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       draws, static_cast<const T*>(mean), static_cast<const T*>(log_scale), d,
       model, n, nc, T(alpha), static_cast<T*>(lw), static_cast<T*>(partials));
   return int(cudaGetLastError());
 }
 
-// d = 10 (eight-schools CP and NCP, the regression path's D) runs a
-// compile-time instance, measured faster than the runtime one (PERF.md);
-// any other d (the funnel's 2) the runtime instance of MAX_DIM.
+// d = 10 (eight-schools CP and NCP, the regression path's D) and d = 2
+// (the funnel, the robust regression) run compile-time instances; any
+// other d the runtime instance of MAX_DIM, with direct loads.
 template <typename T, class Draws>
 int launch_score(const Draws& draws, const void* mean, const void* log_scale,
                  int d, const ModelSpec* spec, long long n, double alpha,
                  void* lw, void* partials, void* stream) {
-  if (d < 1 || d > MAX_DIM) return int(cudaErrorInvalidValue);
+  if (d < 1 || d > MAX_DIM || n < 1) return int(cudaErrorInvalidValue);
   if (d == 10)
     return launch_score_at<T, 10, 10>(draws, mean, log_scale, d, spec, n,
                                       alpha, lw, partials, stream);
+  if (d == 2)
+    return launch_score_at<T, 2, 2>(draws, mean, log_scale, d, spec, n, alpha,
+                                    lw, partials, stream);
   return launch_score_at<T, MAX_DIM, 0>(draws, mean, log_scale, d, spec, n,
                                         alpha, lw, partials, stream);
 }
@@ -599,6 +987,7 @@ int launch_score(const Draws& draws, const void* mean, const void* log_scale,
 extern "C" {
 int bound_pass_chunk(void) { return bound_pass::CHUNK; }
 int bound_pass_max_dim(void) { return bound_pass::MAX_DIM; }
+int bound_pass_max_staged_bytes(void) { return bound_pass::MAX_STAGED_BYTES; }
 int bound_pass_model_spec_size(void) {
   return int(sizeof(bound_pass::ModelSpec));
 }

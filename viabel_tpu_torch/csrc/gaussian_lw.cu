@@ -25,13 +25,21 @@
 //   device half of the known-answer and bit-equality checks, and is on no
 //   path.
 //
-// What bounds them on an H100.  K2 writes 4 B of lw a sample and reads
-// nothing per sample, so it is bound by operations: ~130 a normal group of
-// 4 (Philox's 10 rounds, the uniforms, two Box-Muller pairs), the
-// transform and log q (~5 a coordinate), and the model density, which at
-// the regression's N = 100, d = 10 is ~2600 (the mu loop alone is 2 N d).
-// philox_normal is bound by its bytes, n d 4 B written in f32: each thread
-// writes one group's 16 contiguous bytes beside its neighbours'.
+// What bounds them on an H100 (PERF.md has the times).  K2 writes 4 B of
+// lw a sample and reads nothing per sample, so it is bound by operations:
+// Philox's 10 rounds and Box-Muller for each group of 4 normals, the
+// transform and log q, and the model density, which at the regression's
+// N = 100, d = 10 is ~2600 (the mu loop alone is 2 N d).  philox_normal
+// writes n d values and spends ~50 instructions on each (a logarithm, a
+// square root and a sincospi a pair, in full precision), so it too is
+// bound by the SMs' issue rate before its bytes.  Its design: a block owns
+// a tile of consecutive samples whose z is one contiguous run; threads
+// compute (sample, group) items into shared memory, stepping through them
+// without a division, the last group of a row computing only the pair it
+// keeps; the run then leaves in whole 16-byte stores, neighbouring
+// threads on neighbouring words, with scalar stores for the unaligned head
+// and tail.  The shared-memory tile is shifted so that a word is aligned
+// there exactly where it is aligned in device memory.
 
 #include "bound_pass.cuh"
 
@@ -39,30 +47,133 @@ using namespace bound_pass;
 
 namespace {
 
+// philox_normal's tile is 32 KB of z a block; its launch bound caps the
+// kernel at 32 registers a thread (6 blocks are resident on an SM, which
+// the tile's shared memory decides).
+constexpr int NORMAL_TILE_BYTES = 32 * 1024;
+constexpr int NORMAL_MIN_BLOCKS = 8;
 constexpr int NORMAL_THREADS = 256;
-constexpr int NORMAL_MAX_GRID = 132 * 16;
+constexpr int NORMAL_MAX_GRID = 132 * 16;  // philox_bits' grid
 
-// One thread per (sample, group of 4 normals), neighbours on neighbouring
-// groups.
+// How philox_normal cuts z (n, d) into tiles of at most TILE values of T,
+// one tile a block.
+// d <= TILE: a tile is `rows` whole rows, one contiguous run; where they
+// fit, a multiple of the block (every thread then computes as many items)
+// or of the warp (a warp's lanes then share a group).  d > TILE: a tile
+// is one segment of `seg` columns (a multiple of 4, so groups do not
+// straddle segments) of one row.
 template <typename T>
-__global__ void __launch_bounds__(NORMAL_THREADS)
-    philox_normal_kernel(int64_t n, int d, uint64_t start, uint2 key,
-                         uint32_t offset, T* __restrict__ z) {
-  int groups = (d + 3) / 4;
-  int64_t total = n * groups;
-  for (int64_t t = int64_t(blockIdx.x) * NORMAL_THREADS + threadIdx.x;
-       t < total; t += int64_t(gridDim.x) * NORMAL_THREADS) {
-    int64_t s = t / groups;
-    int g = int(t - s * groups);
-    uint4 b = philox_group(start + uint64_t(s), uint32_t(g), offset, key);
-    T v[4];
-    box_muller(b.x, b.y, v[0], v[1]);
-    box_muller(b.z, b.w, v[2], v[3]);
-    T* row = z + s * d + 4 * g;
-#pragma unroll
-    for (int q = 0; q < 4; ++q)
-      if (4 * g + q < d) row[q] = v[q];
+struct NormalTiling {
+  static constexpr int TILE = NORMAL_TILE_BYTES / int(sizeof(T));
+  int rows, seg, n_seg;
+  int64_t tiles;
+
+  NormalTiling(int64_t n, int d) {
+    if (d <= TILE) {
+      rows = TILE / d;
+      if (rows >= NORMAL_THREADS)
+        rows -= rows % NORMAL_THREADS;
+      else if (rows >= 32)
+        rows -= rows % 32;
+      seg = d;
+      n_seg = 1;
+    } else {
+      rows = 1;
+      seg = TILE;
+      n_seg = (d + TILE - 1) / TILE;
+    }
+    tiles = ((n + rows - 1) / rows) * n_seg;
   }
+};
+
+// A block's walk over the items (major, minor) of a `width`-wide grid in
+// steps of NORMAL_THREADS items, without a division in the loop: where
+// thread `tid` starts and how far one step takes it.
+struct ItemWalk {
+  int major, minor, step_major, step_minor;
+  __device__ ItemWalk(int tid, int width) {
+    if (width >= NORMAL_THREADS) {
+      major = 0;
+      minor = tid;
+      step_major = width == NORMAL_THREADS;
+      step_minor = width == NORMAL_THREADS ? 0 : NORMAL_THREADS;
+    } else {
+      major = tid / width;
+      minor = tid % width;
+      step_major = NORMAL_THREADS / width;
+      step_minor = NORMAL_THREADS % width;
+    }
+  }
+};
+
+template <typename T>
+__global__ void __launch_bounds__(NORMAL_THREADS, NORMAL_MIN_BLOCKS)
+    philox_normal_kernel(int64_t n, int d, uint64_t start, uint2 key,
+                         uint32_t offset, NormalTiling<T> tiling,
+                         T* __restrict__ z) {
+  constexpr int VEC = 16 / int(sizeof(T));  // values in a 16-byte word
+  __shared__ Pack<T, VEC> tile_words[NormalTiling<T>::TILE / VEC + 1];
+  const int tid = threadIdx.x;
+
+  // the block's tile: rows [s0, s0 + ts) x columns [c0, c0 + cw), a run of
+  // ts * cw values from z + s0 * d + c0 (ts = 1 unless cw = d)
+  int64_t row_tile = blockIdx.x;
+  int segment = 0;
+  if (tiling.n_seg > 1) {
+    row_tile = blockIdx.x / tiling.n_seg;
+    segment = int(blockIdx.x - row_tile * tiling.n_seg);
+  }
+  const int64_t s0 = row_tile * tiling.rows;
+  const int ts = int(n - s0 < tiling.rows ? n - s0 : tiling.rows);
+  const int c0 = segment * tiling.seg;
+  const int cw = d - c0 < tiling.seg ? d - c0 : tiling.seg;
+  const int groups = (cw + 3) / 4;
+  const int len = ts * cw;
+  T* dst = z + (s0 * d + c0);
+  // shift the tile so that 16-byte words align in both memories
+  const int shift = int((reinterpret_cast<uintptr_t>(dst) / sizeof(T)) % VEC);
+  T* tile = reinterpret_cast<T*>(tile_words) + shift;
+
+  // Items in group-major order, item = g * ts + ls: the 32 lanes of a
+  // warp share g wherever ts is a multiple of 32, so a short last group
+  // skips its second pair as a warp.
+  const ItemWalk walk(tid, ts);
+  for (int g = walk.major, ls = walk.minor; g < groups;) {
+    uint4 b = philox_group(start + uint64_t(s0 + ls), uint32_t(c0 / 4 + g),
+                           offset, key);
+    T* out = tile + ls * cw + 4 * g;
+    T z0, z1;
+    box_muller(b.x, b.y, z0, z1);
+    out[0] = z0;
+    if (4 * g + 1 < cw) out[1] = z1;
+    if (4 * g + 2 < cw) {  // the pair a short last group drops
+      box_muller(b.z, b.w, z0, z1);
+      out[2] = z0;
+      if (4 * g + 3 < cw) out[3] = z1;
+    }
+    g += walk.step_major;
+    ls += walk.step_minor;
+    if (ls >= ts) {
+      ls -= ts;
+      ++g;
+    }
+  }
+  __syncthreads();
+
+  // the run leaves in 16-byte words, neighbouring threads on neighbouring
+  // words; its unaligned head and tail value by value
+  int head = (VEC - shift) % VEC;
+  if (head > len) head = len;
+  const int words = (len - head) / VEC;
+  const int tail = len - head - words * VEC;
+  if (tid < head) dst[tid] = tile[tid];
+  if (tid < tail)
+    dst[head + words * VEC + tid] = tile[head + words * VEC + tid];
+  const Pack<T, VEC>* src_words =
+      reinterpret_cast<const Pack<T, VEC>*>(tile + head);
+  Pack<T, VEC>* dst_words = reinterpret_cast<Pack<T, VEC>*>(dst + head);
+  for (int w = tid; w < words; w += NORMAL_THREADS)
+    dst_words[w] = src_words[w];
 }
 
 __global__ void philox_bits_kernel(const uint32_t* __restrict__ counters,
@@ -103,10 +214,12 @@ template <typename T>
 int launch_philox_normal(long long n, int d, unsigned long long start,
                          unsigned long long seed, unsigned int offset, void* z,
                          void* stream) {
-  int64_t work = int64_t(n) * ((d + 3) / 4);
-  philox_normal_kernel<T><<<grid_for(work), NORMAL_THREADS, 0,
+  if (n < 1 || d < 1) return int(cudaErrorInvalidValue);
+  NormalTiling<T> tiling(n, d);
+  if (tiling.tiles > 0x7fffffff) return int(cudaErrorInvalidValue);
+  philox_normal_kernel<T><<<int(tiling.tiles), NORMAL_THREADS, 0,
                             static_cast<cudaStream_t>(stream)>>>(
-      n, d, start, key_of(seed), offset, static_cast<T*>(z));
+      n, d, start, key_of(seed), offset, tiling, static_cast<T*>(z));
   return int(cudaGetLastError());
 }
 

@@ -22,17 +22,20 @@
 // * combine_partials replaces the _combine_tiles epilogue
 //   (viabel_tpu/ops/sample_score.py:67-91 at 2e6dc2c^).
 //
-// What bounds them on an H100: K3 is bound by bytes, and so is K1 on
-// eight-schools (K1 reads z, 40 B a sample in f32, and writes lw, 4 B: 33 us
-// at 3.35 TB/s for 2.5e6 samples; its ~230 operations a sample take 9 us at
-// the 67 TFLOP/s f32 rate).  On the regression density K1 is bound by
-// operations instead: 2 N d FMA-operations a sample for mu alone.  The design
-// reads each input once with warp-contiguous addresses, keeps the chunk's
-// log-weights in registers between the score and the statistics, stages
-// the model's data in shared memory, and writes only lw and one 6-value
-// partial per chunk, so device memory sees the bytes the function must
-// move and no more.  combine_partials reads a few KB in one block; its time
-// is launch latency.
+// What bounds them on an H100 (PERF.md has the times).  K1 reads 4 d + 4
+// bytes a sample and spends several hundred instructions on it (the
+// exponentials and logarithms of the density and of the Student-t base in
+// full precision), so it is bound by the rate at which the SMs issue
+// instructions before device memory: at d = 10 it takes 2.3-2.5x the time
+// its bytes alone would (NVIDIA H100 80GB HBM3 at 700 W), and on the
+// regression density the 2 N d operations of x beta dominate.  Its design
+// therefore cuts instructions first (constants of the launch computed
+// once, half the logarithms, statistics by shuffles without divisions) and
+// then makes each load whole: z at d = 10 comes through a shared-memory
+// ring of cp.async copies, d = 2 reads one word a row, and the grid is what
+// the card holds at once (bound_pass.cuh).  K3 moves 4 bytes a sample, is
+// bound by bytes and shares K1's shuffle statistics.  combine_partials
+// reads a few KB in one block; its time is launch latency.
 
 #include "bound_pass.cuh"
 
@@ -47,7 +50,7 @@ template <typename T>
 __global__ void __launch_bounds__(THREADS)
     lw_partials_kernel(const T* __restrict__ lw, int64_t n, int64_t n_chunks,
                        T alpha, T* __restrict__ partials) {
-  __shared__ SharedStats<T> sh;
+  __shared__ WarpStats<T> sh;
   for (int64_t c = blockIdx.x; c < n_chunks; c += gridDim.x) {
     int64_t base = c * CHUNK;
     T v[ITEMS];
@@ -58,7 +61,7 @@ __global__ void __launch_bounds__(THREADS)
       ok[k] = i < n;
       v[k] = ok[k] ? lw[i] : T(0);
     }
-    chunk_partials(v, ok, alpha, sh, partials + c * NPART);
+    chunk_partials(v, ok, base, n, alpha, sh, partials + c * NPART);
   }
 }
 
@@ -106,7 +109,12 @@ int launch_transform_score(const void* z, const void* mean,
                            int base_kind, double df, double t_lognorm,
                            double alpha, const ModelSpec* spec, void* lw,
                            void* partials, void* stream) {
-  LoadedDraws<T> draws{static_cast<const T*>(z), base_kind, T(df),
+  const bool aligned = reinterpret_cast<uintptr_t>(z) % 16 == 0;
+  LoadedDraws<T> draws{static_cast<const T*>(z),
+                       base_kind,
+                       int(aligned),
+                       T(base_kind ? 1.0 / df : 0.0),
+                       T(0.5 * (df + 1.0)),
                        T(t_lognorm)};
   return launch_score<T>(draws, mean, log_scale, d, spec, n, alpha, lw,
                          partials, stream);

@@ -139,8 +139,8 @@ def draw_and_score(log_density, var_family, var_param, z, alpha=2.0):
         d = var_family.dim
         lw, stats = _lw_ops.transform_score_stats(
             z.contiguous(), var_param[:d].contiguous(),
-            var_param[d:].contiguous(), kernel, log_density.kernel_data,
-            df=var_family.df, alpha=alpha)
+            var_param[d:].contiguous(), kernel,
+            log_density.kernel_data_like(z), df=var_family.df, alpha=alpha)
         return samples, lw, stats
     lw = log_density(samples) - var_family.log_prob(var_param, samples)
     return samples, lw, _lw_ops.lw_stats(lw.contiguous(), alpha)
@@ -167,7 +167,7 @@ def get_samples_and_log_weights(log_density, var_family, var_param,
         lw, _ = _gaussian_ops.gaussian_sample_score_partials(
             var_param[:d].contiguous(), var_param[d:].contiguous(),
             n_samples, seed, 0, log_density.kernel,
-            log_density.kernel_data)
+            log_density.kernel_data_like(var_param))
         z = _gaussian_ops.philox_normal(n_samples, d, seed, 0, 0,
                                         var_param.dtype, device)
         return var_family.transform(var_param, z), lw

@@ -21,7 +21,9 @@ class Model(NamedTuple):
     `ops.gaussian_lw`), and `kernel_data` holds what that density reads:
     float64 host tensors, then any scalar constants (the regression
     models' ``(x, y, df, noise_scale, prior_std)``); both are ``None`` for
-    a model without one.  The bound pass dispatches on `kernel`.
+    a model without one.  The bound pass dispatches on `kernel`, and
+    takes the data from `kernel_data_like`, which keeps one copy of the
+    tensors per device and dtype (`kernel_cache`, shared with `log_prob`).
     """
     log_prob: Callable
     dim: int
@@ -31,17 +33,28 @@ class Model(NamedTuple):
     param_names: Tuple[str, ...] = ()
     kernel: Optional[str] = None
     kernel_data: Optional[tuple] = None
+    kernel_cache: Optional['_DataCache'] = None
 
     def __call__(self, x):
         return self.log_prob(x)
 
+    def kernel_data_like(self, x):
+        """`kernel_data` with its tensors on `x`'s device in `x`'s dtype,
+        converted once for each device and dtype."""
+        if self.kernel_cache is None:
+            return self.kernel_data
+        tensors = self.kernel_cache.like(x)
+        return tensors + self.kernel_data[len(tensors):]
+
 
 class _DataCache:
     """The data as tensors of the evaluating tensor's device and dtype,
-    converted once per (device, dtype) rather than on every call."""
+    converted once per (device, dtype) rather than on every call.  The data
+    is copied when the cache is made: a later change to the caller's arrays
+    changes neither the host tensors nor their copies."""
 
     def __init__(self, *arrays):
-        self._host = [torch.as_tensor(np.asarray(a, dtype=np.float64))
+        self._host = [torch.tensor(np.array(a, dtype=np.float64))
                       for a in arrays]
         self._cache = {}
 

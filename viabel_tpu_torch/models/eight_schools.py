@@ -110,7 +110,8 @@ def eight_schools_cp_model(y=None, sigma=None):
         true_mean, true_cov = _load_ground_truth('eight_schools_cp')
     kernel = 'eight_schools_cp' if J == _KERNEL_J else None
     return Model(log_prob, 2 + J, 'eight_schools_cp', true_mean, true_cov,
-                 names, kernel, data.host if kernel else None)
+                 names, kernel, data.host if kernel else None,
+                 data if kernel else None)
 
 
 def eight_schools_ncp_model(y=None, sigma=None):
@@ -134,7 +135,8 @@ def eight_schools_ncp_model(y=None, sigma=None):
         true_mean, true_cov = _load_ground_truth('eight_schools_ncp')
     kernel = 'eight_schools_ncp' if J == _KERNEL_J else None
     return Model(log_prob, 2 + J, 'eight_schools_ncp', true_mean, true_cov,
-                 names, kernel, data.host if kernel else None)
+                 names, kernel, data.host if kernel else None,
+                 data if kernel else None)
 
 
 def eight_schools_ncp_to_cp(z):

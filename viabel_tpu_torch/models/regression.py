@@ -77,7 +77,7 @@ def _regression_model(x, y, df, noise_scale, prior_std, name, true_mean,
         kernel_data = data.host + (df, noise_scale, prior_std)
     return Model(log_prob, D, name, true_mean, true_cov,
                  tuple('beta[{}]'.format(i) for i in range(D)),
-                 kernel, kernel_data)
+                 kernel, kernel_data, data if kernel else None)
 
 
 def robust_regression_notebook_data():

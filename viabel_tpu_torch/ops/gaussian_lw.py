@@ -14,6 +14,9 @@ Two CUDA kernels from ``csrc/gaussian_lw.cu`` (see the note at its top):
   never writes samples.
 * `philox_normal` writes the same z (n, d) of the same stream, for the
   callers that need the samples (PSIS and `get_samples_and_log_weights`).
+  Each block computes a tile of consecutive samples into shared memory
+  and stores the tile's contiguous run in 16-byte words; the last group of
+  a row computes only the Box-Muller pair the row keeps.
 
 The stream is `ops.philox`'s: the plain versions draw the same uniforms
 bit for bit, so a CPU run and a card run of one ``(seed, offset)`` score

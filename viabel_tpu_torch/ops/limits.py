@@ -9,7 +9,7 @@ carries its kernel tag only where its data fits (`models.regression`).
 __all__ = ['MAX_DIM', 'MAX_STAGED_BYTES', 'staged_bytes', 'fits']
 
 MAX_DIM = 32                   # equals MAX_DIM in the .cuh
-MAX_STAGED_BYTES = 96 * 1024
+MAX_STAGED_BYTES = 96 * 1024   # equals MAX_STAGED_BYTES in the .cuh
 
 
 def staged_bytes(n_values, itemsize):

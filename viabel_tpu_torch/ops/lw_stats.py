@@ -23,14 +23,16 @@ Three CUDA kernels from ``csrc/lw_stats.cu`` (see the note at its top):
   ``[log_rescale, mean_rescaled_alpha, std_rescaled_alpha, mean_lw,
   std_lw]`` (population std, as ``jnp.std``).
 
-Bound on an H100: K3 moves bytes, and so does K1 on eight-schools (it
-reads 40 B of z and writes 4 B of lw a sample in f32; its ~230 operations
-a sample need about a quarter of that time at the card's float32 rate)
-and on the funnel (12 B and ~50 operations a sample); on the regression
-density K1 is bound by operations (~2 N d a sample).  Each
-reads its input once with warp-contiguous addresses, keeps the chunk's
-log-weights in registers between score and statistics, and writes lw plus
-one 6-value row per 2048 samples.
+What bounds them on an H100 (PERF.md has the times): K3 moves 4 bytes a
+sample and is bound by bytes.  K1 spends several hundred instructions on
+the 4 d + 4 bytes of a sample, so the SMs' issue rate bounds it before
+device memory does, and on the regression density the ~2 N d operations
+of ``x beta`` do.  K1 therefore computes a launch's constants once, takes
+z at d = 10 through a shared-memory ring of 16-byte asynchronous copies
+(d = 2 reads a row as one word; a z that is not 16-byte aligned, and the
+ragged last tile, are read value by value), keeps the chunk's log-weights
+in registers between score and statistics, merges those by warp shuffles,
+and writes lw plus one 6-value row per 2048 samples.
 
 Partials row: ``[count, m, mean_e, M2_e, mean_lw, M2_lw]`` with m the
 chunk max, ``e = exp(lw - m)^alpha`` and M2 the sum of squared
@@ -123,16 +125,17 @@ def _lib():
 
 def check_layout(lib, name):
     """Raise unless the library built from ``csrc/<name>.cu`` agrees with
-    this module on CHUNK, MAX_DIM and the ModelSpec layout."""
+    this module and `ops.limits` on CHUNK, MAX_DIM, MAX_STAGED_BYTES and the
+    ModelSpec layout."""
     fns = (lib.bound_pass_chunk, lib.bound_pass_max_dim,
-           lib.bound_pass_model_spec_size)
+           lib.bound_pass_max_staged_bytes, lib.bound_pass_model_spec_size)
     for fn in fns:
         fn.argtypes, fn.restype = [], ctypes.c_int
     got = tuple(fn() for fn in fns)
-    if got != (CHUNK, MAX_DIM, ctypes.sizeof(ModelSpec)):
+    if got != (CHUNK, MAX_DIM, MAX_STAGED_BYTES, ctypes.sizeof(ModelSpec)):
         raise RuntimeError('csrc/{}.cu and ops/lw_stats.py disagree on '
-                           'CHUNK, MAX_DIM or the ModelSpec layout: {}'
-                           .format(name, got))
+                           'CHUNK, MAX_DIM, MAX_STAGED_BYTES or the '
+                           'ModelSpec layout: {}'.format(name, got))
 
 
 def launch(lib, counts, name, device, dtype, *args):

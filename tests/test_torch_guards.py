@@ -74,3 +74,23 @@ def test_cuda_resolution_applies_the_fp32_matmul_policy(monkeypatch):
         assert torch.get_float32_matmul_precision() == 'highest'
     finally:
         torch.set_float32_matmul_precision(before)
+
+
+@pytest.mark.parametrize('source,module', [('lw_stats', 'lw_stats'),
+                                           ('gaussian_lw', 'gaussian_lw')])
+def test_ctypes_signatures_match_the_c_entry_points(source, module):
+    """Every entry point's declared ctypes arguments plus the stream are
+    the C function's parameters, one for one: an argument left out of
+    argtypes is passed as a C int, which cuts a 64-bit stream handle."""
+    import importlib
+    import re
+    ops = importlib.import_module('viabel_tpu_torch.ops.' + module)
+    with open(os.path.join(ROOT, 'viabel_tpu_torch', 'csrc',
+                           source + '.cu')) as f:
+        src = f.read()
+    for name, argtypes in ops._SIGNATURES.items():
+        for suffix in ('f32', 'f64'):
+            params = re.search(r'\bint {}_{}\(([^)]*)\)'.format(name, suffix),
+                               src).group(1).split(',')
+            assert params[-1].split() == ['void*', 'stream']
+            assert len(params) == len(argtypes) + 1, name

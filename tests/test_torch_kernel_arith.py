@@ -5,7 +5,9 @@ torch and held against the plain versions on the CPU.
 by term: reciprocals of sigma, tau, df and the scales in place of
 divisions, the summed ``log sigma``, sums of squares in place of sums of
 log densities, one logarithm for two coordinates of the Student-t base, a
-chunk's statistics as a butterfly of equal-count Chan merges, and
+chunk's statistics as a butterfly of equal-count Chan merges, the combine
+as merges in the thread and butterflies with counts in the working type,
+and
 Box-Muller with the pair a short last group drops left out.  Box-Muller's
 own arithmetic stays the plain version's: ``sincospi`` of twice the
 uniform moved the normals by up to 1.8e-6, which the funnel's float32
@@ -232,6 +234,14 @@ def _merge(a, b):
     return n, mean, m2
 
 
+def _merge_any(a, b):
+    """The kernel's merge_any: `_merge_equal` where the counts agree, else
+    `_merge`."""
+    equal = a[0] == b[0]
+    return tuple(torch.where(equal, e, g)
+                 for e, g in zip(_merge_equal(a, b), _merge(a, b)))
+
+
 def _butterfly(group, width, equal):
     """xor-shuffle merges over the last axis (lanes); lane 0's result.  In
     the general rule both lanes merge the upper lane's group into the
@@ -323,6 +333,83 @@ def test_chunk_statistics_by_butterfly_match_plain(case, dtype):
     _close(ops.combine_partials_plain(torch.cat([got[None], other])),
            ops.combine_partials_plain(torch.cat([want[None], other])),
            0, rtol)
+
+
+def _combine_as_kernel(partials, alpha=2.0):
+    """The combine in combine_rows' order: thread t of 256 holds rows t,
+    t + 256, ...; the nan-propagating max; each row rescaled by
+    exp(m_b - M)^alpha and merged in the thread (the first row taken as
+    is, then `_merge_any`: no division where the counts agree); 32 lanes,
+    then 8 warps, by the general rule."""
+    rows = partials.shape[0]
+    per = -(-rows // THREADS)
+    padded = torch.zeros((per * THREADS, 6), dtype=partials.dtype)
+    padded[:rows] = partials
+    padded = padded.reshape(per, THREADS, 6)   # [i, t] = row t + 256 i
+    present = (torch.arange(per * THREADS) < rows).reshape(per, THREADS)
+    big_m = partials[:, 1].max()   # NaN propagates
+    r = torch.exp(padded[..., 1] - big_m) ** alpha
+    groups = [(padded[..., 0], padded[..., 2] * r, padded[..., 3] * r * r),
+              (padded[..., 0], padded[..., 4], padded[..., 5])]
+    out = []
+    for count, mean, m2 in groups:
+        acc = (count[0], mean[0], m2[0])
+        for i in range(1, per):
+            row = (count[i], mean[i], m2[i])
+            merged = _merge_any(acc, row)
+            acc = tuple(torch.where(present[i], mm, a)
+                        for mm, a in zip(merged, acc))
+        # threads without a row hold zeros, as the kernel's do
+        acc = tuple(torch.where(present[0], a, torch.zeros_like(a))
+                    for a in acc)
+        warp = _butterfly(tuple(t.reshape(WARPS, 32) for t in acc), 32,
+                          False)
+        out.append(_butterfly(tuple(t[None, :] for t in warp), WARPS,
+                              False))
+    (n, mean_e, m2_e), (_, mean_lw, m2_lw) = out
+    return torch.stack([big_m, mean_e[0], torch.sqrt(m2_e[0] / n[0]),
+                        mean_lw[0], torch.sqrt(m2_lw[0] / n[0])])
+
+
+def _partials_rows(case, dtype):
+    """Partials rows of full chunks (count 2048) and a ragged last one, at
+    the shapes the paths reduce (1221 rows at 2.5e6 samples, 489 at 1e6),
+    a single row, and 20000 rows (4.1e7 samples, past float32's exact
+    integers)."""
+    rows = {'one': 1, 'regression': 489, 'eight_schools': 1221,
+            'underflow': 1221, 'many': 20000}[case]
+    rng = np.random.RandomState(rows)
+    count = np.full(rows, 2048.0)
+    count[-1] = 1440.0 if rows > 1 else 17.0
+    m = -50.0 + rng.randn(rows)
+    if case == 'underflow':    # rows whose r_b underflows to 0
+        m[100:400] -= 1e4
+    mean_e = rng.uniform(0.05, 0.5, rows)
+    m2_e = count * mean_e * rng.uniform(0.1, 1.0, rows)
+    mean_lw = m - rng.uniform(2.0, 4.0, rows)
+    m2_lw = count * rng.uniform(0.5, 2.0, rows)
+    return torch.as_tensor(np.stack([count, m, mean_e, m2_e, mean_lw, m2_lw],
+                                    axis=1), dtype=dtype)
+
+
+@pytest.mark.parametrize('dtype', DTYPES)
+@pytest.mark.parametrize('case', ['one', 'regression', 'eight_schools',
+                                  'underflow', 'many'])
+def test_combine_rows_as_kernel_match_plain(case, dtype):
+    """combine_rows' merges (counts in the working type, merge_equal where
+    two counts agree) against the plain combine's tree with float64
+    counts."""
+    parts = _partials_rows(case, dtype)
+    got = _combine_as_kernel(parts)
+    assert torch.isfinite(got).all()
+    _close(got, ops.combine_partials_plain(parts), 0, STATS_RTOL[dtype])
+
+
+@pytest.mark.parametrize('dtype', DTYPES)
+def test_combine_rows_as_kernel_propagate_nan(dtype):
+    parts = _partials_rows('eight_schools', dtype)
+    parts[700, 1:] = float('nan')
+    assert torch.isnan(_combine_as_kernel(parts)).all()
 
 
 @pytest.mark.parametrize('dtype', DTYPES)

@@ -450,3 +450,142 @@ def test_philox_normal_tiles_match_plain(cuda, dtype, start, n, d):
     tol = 1e-12 if dtype == torch.float64 else 2e-6  # last-bit log/sincos
     np.testing.assert_allclose(z.cpu().numpy(), z_p.cpu().numpy(), rtol=tol,
                                atol=tol)
+
+
+# --------------------------------------------------------------------------
+# the statistics of a bound pass: K1 or K3, then combine_rows in one block
+# --------------------------------------------------------------------------
+
+RAGGED_N = 300_007
+# more chunks than K3's grid of 4096 blocks, so that its blocks stride
+N_ABOVE_K3_GRID = 4096 * 2048 + 2048 * 3 + 5
+
+
+def _lw(n, dtype, device, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return 3.0 * torch.randn(n, generator=g, dtype=dtype, device=device) - 50.0
+
+
+def _plain_stats(lw):
+    return ops.combine_partials_plain(ops.lw_partials_plain(lw))
+
+
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
+@pytest.mark.parametrize('n', [1, ops.CHUNK - 1, ops.CHUNK, ops.CHUNK + 1,
+                               RAGGED_N, 2_500_000, N_ABOVE_K3_GRID])
+def test_lw_stats_match_plain(cuda, dtype, n):
+    lw = _lw(n, dtype, cuda, seed=n)
+    before = dict(ops.launches)
+    stats = ops.lw_stats(lw)
+    assert ops.launches['lw_partials'] == before['lw_partials'] + 1
+    assert ops.launches['combine_partials'] == before['combine_partials'] + 1
+    _assert_stats_close(stats, _plain_stats(lw), TOL[dtype]['rtol'])
+
+
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
+@pytest.mark.parametrize('n', [1, ops.CHUNK - 1, ops.CHUNK, ops.CHUNK + 1,
+                               RAGGED_N, 2_500_000, N_ABOVE_RESIDENT])
+def test_transform_score_stats_match_plain(cuda, dtype, n):
+    model, z, mean, log_scale = _inputs(n, dtype, cuda, seed=n)
+    args = (z, mean, log_scale, model.kernel, model.kernel_data, 40.0)
+    before = dict(ops.launches)
+    lw, stats = ops.transform_score_stats(*args)
+    assert ops.launches['transform_score_partials'] == \
+        before['transform_score_partials'] + 1
+    assert ops.launches['combine_partials'] == before['combine_partials'] + 1
+    lw_p, parts_p = ops.transform_score_partials_plain(*args)
+    tol = TOL[dtype]
+    np.testing.assert_allclose(lw.cpu().numpy(), lw_p.cpu().numpy(),
+                               atol=tol['lw_atol'], rtol=tol['lw_rtol'])
+    _assert_stats_close(stats, ops.combine_partials_plain(parts_p),
+                        tol['rtol'])
+
+
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
+def test_stats_with_nan_and_underflow(cuda, dtype):
+    """A chunk whose weights underflow against the global max leaves finite
+    statistics equal to the plain version's; a NaN in one chunk reaches
+    them, after K3 and after K1 alike."""
+    n = 2048 * 40 + 333
+    lw = _lw(n, dtype, cuda, seed=1)
+    lw[2048 * 5:2048 * 30] -= 1e4
+    stats = ops.lw_stats(lw)
+    assert torch.isfinite(stats).all()
+    _assert_stats_close(stats, _plain_stats(lw), TOL[dtype]['rtol'])
+    lw[2048 * 33 + 7] = float('nan')
+    assert torch.isnan(ops.lw_stats(lw)).all()
+    model, _, mean, log_scale = _inputs(1, dtype, cuda)
+    z = torch.randn((2048 * 6, model.dim), dtype=dtype, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(3))
+    z[2048 * 2: 2048 * 3, 1] = -12.0    # lw near -1e15: weights underflow
+    args = (mean, log_scale, model.kernel, model.kernel_data, None)
+    _, stats = ops.transform_score_stats(z, *args)
+    _, parts_p = ops.transform_score_partials_plain(z, *args)
+    assert torch.isfinite(stats).all()
+    _assert_stats_close(stats, ops.combine_partials_plain(parts_p),
+                        TOL[dtype]['rtol'])
+    z[2048 * 4 + 5, 3] = float('nan')
+    assert torch.isnan(ops.transform_score_stats(z, *args)[1]).all()
+
+
+# --------------------------------------------------------------------------
+# the regression density on padded rows
+# --------------------------------------------------------------------------
+
+def _limit_rows(d):
+    """The most rows of a D = d regression that still carry the kernel tag
+    (its float64 padded rows fill the staged shared memory)."""
+    from viabel_tpu_torch.ops import limits
+    n_rows = 1
+    while limits.fits(d, (n_rows + 1) * limits.regression_row(d, 8), 8):
+        n_rows += 1
+    return n_rows
+
+
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
+@pytest.mark.parametrize('d', [2, 3, 10])
+@pytest.mark.parametrize('n_rows', [1, 25, 100, 'limit'])
+@pytest.mark.parametrize('robust', [False, True])
+def test_regression_rows_in_k1_and_k2_match_plain(cuda, dtype, d, n_rows,
+                                                  robust):
+    from viabel_tpu_torch.models import (data_generator_linear,
+                                         linear_regression_model,
+                                         robust_regression_model)
+    from viabel_tpu_torch.ops import gaussian_lw as gops
+    n_rows = _limit_rows(d) if n_rows == 'limit' else n_rows
+    data = data_generator_linear(N=n_rows, D=d, seed=n_rows)
+    model = (robust_regression_model(data['X'], data['Y'], df=5.0)
+             if robust else linear_regression_model(data['X'], data['Y']))
+    assert model.kernel == 'regression'
+    beta = np.linalg.lstsq(data['X'], data['Y'], rcond=None)[0]
+    mean = torch.as_tensor(beta, dtype=dtype, device=cuda)
+    log_scale = torch.full((d,), -3.0, dtype=dtype, device=cuda)
+    n = 2048 * 3 + 17
+    tol = TOL[dtype]
+    k2_args = (mean, log_scale, n, 12345, 3, model.kernel, model.kernel_data)
+    z = torch.randn((n, d), dtype=dtype, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(d))
+    k1_args = (z, mean, log_scale, model.kernel, model.kernel_data, 40.0)
+    for kernel, plain, args in (
+            (gops.gaussian_sample_score_partials,
+             gops.gaussian_sample_score_partials_plain, k2_args),
+            (ops.transform_score_partials, ops.transform_score_partials_plain,
+             k1_args)):
+        lw, parts = kernel(*args)
+        lw_p, parts_p = plain(*args)
+        torch.cuda.synchronize()
+        # the kernel sums the N rows' terms in order, the plain version
+        # pairwise: in float32 they part by ~sqrt(N) ulps of the sum, so
+        # lw_rtol, held at the paths' N <= 100, scales by sqrt(N / 100)
+        # (the staging limit is 3056 rows at d = 2)
+        lw_rtol = tol['lw_rtol'] * max(1.0, (n_rows / 100.0) ** 0.5)
+        np.testing.assert_allclose(lw.cpu().numpy(), lw_p.cpu().numpy(),
+                                   atol=tol['lw_atol'], rtol=lw_rtol)
+        # REGRESSION_STATS_RTOL holds the rescaled moments at |lw| ~ 120,
+        # where they move by alpha times a difference of a few ulps in the
+        # max; at the staging limit (3056 rows at d = 2) |lw| reaches
+        # ~1200, ten times the ulp, so the same rule scales with |lw|
+        scale = max(1.0, float(lw_p.abs().max()) / 120.0)
+        _assert_stats_close(ops.combine_partials(parts),
+                            ops.combine_partials_plain(parts_p),
+                            REGRESSION_STATS_RTOL[dtype] * scale)

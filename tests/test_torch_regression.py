@@ -5,6 +5,8 @@ The data generators draw with numpy's legacy RandomState in both packages,
 so the data must be identical; the log densities are compared at seeded
 coefficients at rtol 1e-12.
 """
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -12,6 +14,8 @@ import torch
 
 from viabel_tpu.models import regression as jr
 from viabel_tpu_torch.models import regression as tr
+from viabel_tpu_torch.ops import limits
+from viabel_tpu_torch.ops import lw_stats as lw_ops
 
 RTOL = 1e-12
 
@@ -129,3 +133,101 @@ def test_log_prob_under_vmap_and_autograd():
         batched.numpy(),
         tm.log_prob(b.reshape(6, 4)).reshape(2, 3).sum(1).numpy(),
         rtol=RTOL)
+
+
+# --------------------------------------------------------------------------
+# the staged-bytes rule of the score kernels, after the padded rows
+# --------------------------------------------------------------------------
+
+_CUH = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), 'viabel_tpu_torch', 'csrc', 'bound_pass.cuh')
+
+
+def _kernel_takes(d, n_rows, itemsize, maxd):
+    """The rule the score kernels apply at launch, restated from
+    csrc/bound_pass.cuh: ``regression_row`` pads x_k, y_k to whole 16-byte
+    words, ``ModelArgs::staged_values`` is n_rows such rows, and
+    ``launch_score_at`` refuses ``score_smem_bytes`` = ring + sizeof(T) (2
+    MAXD + staged_values) above ring + sizeof(T) 2 MAXD +
+    MAX_STAGED_BYTES."""
+    word = 16 // itemsize
+    staged = n_rows * ((d + 1 + word - 1) // word * word)
+    return itemsize * (2 * maxd + staged) <= (itemsize * 2 * maxd
+                                              + limits.MAX_STAGED_BYTES)
+
+
+def test_the_restated_rule_is_the_kernels():
+    with open(_CUH) as f:
+        src = f.read()
+    for line in ('return (d + 1 + W - 1) / W * W;',
+                 'return kind == REGRESSION ? n_rows * regression_row<T>(d)',
+                 'sizeof(T) * (2 * MAXD + m.staged_values(d));',
+                 'sizeof(T) * 2 * MAXD + MAX_STAGED_BYTES;'):
+        assert line in src, line
+
+
+@pytest.mark.parametrize('itemsize', [4, 8])
+@pytest.mark.parametrize('d', [1, 2, 3, 4, 7, 10, 11, 31, 32])
+def test_fits_and_check_kernel_model_follow_the_padded_rows(d, itemsize):
+    """Around the largest row count the host lets through: `limits.fits`,
+    `check_kernel_model` and the kernels' rule (at every instance's MAXD)
+    agree that it fits, the next row count does not fit the host's rule,
+    and the host never passes what a kernel would refuse."""
+    assert limits.regression_row(d, itemsize) % (16 // itemsize) == 0
+    word_values = 16 // itemsize
+    assert limits.regression_row(d, itemsize) == (
+        -(-(d + 1) // word_values) * word_values)
+    most = (limits.MAX_STAGED_BYTES // itemsize - 2 * limits.MAX_DIM) \
+        // limits.regression_row(d, itemsize)
+    for n_rows in (1, most - 1, most, most + 1):
+        fits = limits.fits(d, n_rows * limits.regression_row(d, itemsize),
+                           itemsize)
+        assert fits == (n_rows <= most)
+        x, y = torch.zeros(n_rows, d), torch.zeros(n_rows)
+        data = (x, y, None, 1.0, 1.0)
+        if fits:
+            lw_ops.check_kernel_model('regression', data, d, itemsize)
+            for maxd in {d if d in (2, 10) else 32, 32}:
+                assert _kernel_takes(d, n_rows, itemsize, maxd)
+        else:
+            with pytest.raises(ValueError):
+                lw_ops.check_kernel_model('regression', data, d, itemsize)
+
+
+@pytest.mark.parametrize('d', [2, 10, 32])
+def test_kernel_tag_just_inside_and_just_outside_the_staging_limit(d):
+    """The most rows whose float64 padded rows fit keep the tag; one more
+    row loses it (d = 10: 1018 rows of 12 values; unpadded, 1111 would
+    have fit)."""
+    most = (limits.MAX_STAGED_BYTES // 8 - 2 * limits.MAX_DIM) \
+        // limits.regression_row(d, 8)
+    data = tr.data_generator_linear(N=most + 1, D=d, seed=4)
+    inside = tr.linear_regression_model(data['X'][:most], data['Y'][:most])
+    outside = tr.linear_regression_model(data['X'], data['Y'])
+    assert inside.kernel == 'regression' and outside.kernel is None
+    assert outside.kernel_data is None
+    if d == 10:
+        assert most == 1018
+
+
+@pytest.mark.parametrize('case', range(4))
+def test_repo_models_keep_their_tag_and_plain_lw(case):
+    """The padding moves no model of the repo across the limit (each kept
+    the tag it had under the unpadded rule), and the plain path scores
+    them as the model's own density does."""
+    _, _, tm = _models()[case]
+    x, y = tm.kernel_data[:2]
+    n_rows, d = x.shape
+    unpadded = limits.fits(d, n_rows * (d + 1), 8)
+    assert unpadded and tm.kernel == 'regression'
+    rng = np.random.RandomState(case)
+    z = torch.as_tensor(rng.randn(50, d))
+    mean = torch.as_tensor(rng.randn(d))
+    log_scale = torch.as_tensor(0.1 * rng.randn(d))
+    lw, _ = lw_ops.transform_score_partials(z, mean, log_scale, tm.kernel,
+                                            tm.kernel_data)
+    xs = mean + torch.exp(log_scale) * z
+    logq = (-0.5 * torch.sum(z * z + np.log(2 * np.pi), dim=1)
+            - torch.sum(log_scale))
+    np.testing.assert_allclose(lw.numpy(), (tm.log_prob(xs) - logq).numpy(),
+                               rtol=RTOL)

@@ -29,9 +29,14 @@ KERNELS = {
     'score_partials_kernelIfLi2ELi2ENS_11LoadedDraws': 'K1 f32 d=2',
     'score_partials_kernelIfLi10ELi10ENS_11PhiloxDraws': 'K2 f32 d=10',
     'lw_partials_kernelIfE': 'K3 f32',
+    'combine_partials_kernelIfE': 'combine f32',
 }
 _OPCODE = re.compile(
     r'/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\d\s+)?([A-Z0-9_]+(?:\.WIDE)?)')
+# shared-memory and constant loads with their modifiers (the width among
+# them: LDS.64, LDS.128; none is 32 bits)
+_LOAD = re.compile(
+    r'/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\d\s+)?((?:LDS|ULDC|LDC)(?:\.[A-Z0-9]+)*)')
 
 
 def main():
@@ -65,6 +70,12 @@ def main():
                 label, sum(ops.values()),
                 ', '.join('{} {}'.format(op, c)
                           for op, c in ops.most_common(14))), flush=True)
+            loads = collections.Counter(
+                m.group(1) for m in map(_LOAD.search, lines) if m)
+            print('  {}: FFMA {}; loads by width: {}'.format(
+                label, ops['FFMA'], ', '.join(
+                    '{} {}'.format(op, c) for op, c in sorted(loads.items()))),
+                flush=True)
     return 0
 
 

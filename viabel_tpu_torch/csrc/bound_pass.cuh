@@ -17,10 +17,15 @@
 // the next 16 bytes, each warp copying the rows its own lanes will score
 // (so a warp barrier suffices) while it scores the sub-tile before, and
 // each thread then reads its row as 8- or 16-byte words; d = 2 has its own
-// instance and reads a row as one word; a chunk's statistics merge by warp
-// shuffles with two block barriers, and full chunks, whose groups have
-// equal counts, merge without a division; the grid is what the card holds
-// at once, each block walking chunks in a stride.
+// instance and reads a row as one word; a regression's rows are staged
+// padded, [x_k, y_k, 0 ..] to whole 16-byte words, so that every row
+// starts on 16 bytes and is read as 16-byte broadcasts, the used values
+// only (x beta's issue slots are the bulk of K2's work at N = 100, d = 10;
+// PERF.md has why two samples a pass over the rows did not pay); a chunk's
+// statistics merge by warp shuffles with two block barriers, and full
+// chunks, whose groups have equal counts, merge without a division; the
+// grid is what the card holds at once, each block walking chunks in a
+// stride.
 //
 // Partials layout, one row of NPART values per chunk of CHUNK consecutive
 // samples (the last chunk may be ragged):
@@ -94,6 +99,12 @@ __device__ __forceinline__ T nan_max(T a, T b) {
   return (a != a || a > b) ? a : b;
 }
 
+// N values of T as one aligned word of 4, 8 or 16 bytes
+template <typename T, int N>
+struct alignas(sizeof(T) * N) Pack {
+  T v[N];
+};
+
 // exp(v)^alpha, the JAX package's form of the rescaled weight
 template <typename T>
 __device__ __forceinline__ T pow_alpha(T v, T alpha) {
@@ -119,75 +130,15 @@ __device__ __forceinline__ void welford(Moments<T>& s, T e, T lw) {
   s.m2_lw += dl * (lw - s.mean_lw);
 }
 
-// Chan's rule: merge b into a; counts as double so that ratios stay exact
-// for any n
-template <typename T>
-__device__ __forceinline__ void chan(double& na, T& mean_a, T& m2_a, double nb,
-                                     T mean_b, T m2_b) {
-  if (nb == 0.0) return;
-  double n = na + nb;
-  T delta = mean_b - mean_a;
-  mean_a += delta * T(nb / n);
-  m2_a += m2_b + delta * delta * T(na * nb / n);
-  na = n;
-}
-
-template <typename T, int BS>
-__device__ T block_max(T v, T* s_buf) {
-  int tid = threadIdx.x;
-  s_buf[tid] = v;
-  __syncthreads();
-  for (int s = BS / 2; s > 0; s >>= 1) {
-    if (tid < s) s_buf[tid] = nan_max(s_buf[tid], s_buf[tid + s]);
-    __syncthreads();
-  }
-  T out = s_buf[0];
-  __syncthreads();
-  return out;
-}
-
-// Tree of Chan merges in shared memory; thread 0 ends with the block's sums.
-template <typename T, int BS>
-__device__ void block_chan(double& n, T& me, T& m2e, T& ml, T& m2l,
-                           double* s_n, T* s_me, T* s_m2e, T* s_ml, T* s_m2l) {
-  int tid = threadIdx.x;
-  s_n[tid] = n;
-  s_me[tid] = me;
-  s_m2e[tid] = m2e;
-  s_ml[tid] = ml;
-  s_m2l[tid] = m2l;
-  __syncthreads();
-  for (int s = BS / 2; s > 0; s >>= 1) {
-    if (tid < s) {
-      double na = s_n[tid], nb = s_n[tid + s];
-      T mea = s_me[tid], m2ea = s_m2e[tid];
-      T mla = s_ml[tid], m2la = s_m2l[tid];
-      double na2 = na;
-      chan(na, mea, m2ea, nb, s_me[tid + s], s_m2e[tid + s]);
-      chan(na2, mla, m2la, nb, s_ml[tid + s], s_m2l[tid + s]);
-      s_n[tid] = na;
-      s_me[tid] = mea;
-      s_m2e[tid] = m2ea;
-      s_ml[tid] = mla;
-      s_m2l[tid] = m2la;
-    }
-    __syncthreads();
-  }
-  n = s_n[0];
-  me = s_me[0];
-  m2e = s_m2e[0];
-  ml = s_ml[0];
-  m2l = s_m2l[0];
-  __syncthreads();
-}
-
 // ---------------------------------------------------------------------------
 // A chunk's statistics (K1, K2 and K3), by warp shuffles with two block
-// barriers a chunk.
+// barriers a chunk, and the combine of the chunks' rows, by the same
+// shuffles in one block.
 // ---------------------------------------------------------------------------
 
-// Chan's rule on whole Moments, counts in T (a chunk's counts are at most
-// CHUNK, exact in float): merge b into a.
+// Chan's rule on whole Moments, counts in T: merge b into a.  A chunk's
+// counts are at most CHUNK, exact in float; the combine's reach n, and in
+// float the ratios then round like any other value (relative 6e-8).
 template <typename T>
 __device__ __forceinline__ void merge(Moments<T>& a, const Moments<T>& b) {
   if (b.count == T(0)) return;
@@ -213,6 +164,18 @@ __device__ __forceinline__ void merge_equal(Moments<T>& a,
   a.mean_lw = T(0.5) * (a.mean_lw + b.mean_lw);
   a.m2_lw = (a.m2_lw + b.m2_lw) + dl * dl * half;
   a.count += a.count;
+}
+
+// Either of the two: no division where the counts agree (two full chunks,
+// or two groups of as many full chunks).  Used where a thread merges groups
+// one after another; a butterfly keeps one rule for the whole warp, since
+// a warp whose lanes split between the two pays for both.
+template <typename T>
+__device__ __forceinline__ void merge_any(Moments<T>& a, const Moments<T>& b) {
+  if (a.count == b.count)
+    merge_equal(a, b);
+  else
+    merge(a, b);
 }
 
 // Butterfly of merges over the first WIDTH lanes of a warp (every lane of
@@ -250,6 +213,52 @@ struct WarpStats {  // one slot a warp
   T count[WARPS], me[WARPS], m2e[WARPS], ml[WARPS], m2l[WARPS];
 };
 
+// The block's max (NaN propagates) of every thread's m, in every thread:
+// shuffles within a warp, then one barrier.
+template <typename T>
+__device__ __forceinline__ T block_nan_max(T m, WarpStats<T>& sh) {
+  const unsigned all = 0xffffffffu;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int k = 16; k > 0; k >>= 1)
+    m = nan_max(m, __shfl_xor_sync(all, m, k));
+  if (lane == 0) sh.max_buf[warp] = m;
+  __syncthreads();
+  m = sh.max_buf[0];
+#pragma unroll
+  for (int w = 1; w < WARPS; ++w) m = nan_max(m, sh.max_buf[w]);
+  return m;
+}
+
+// The block's merged group of every thread's s, in the lanes of warp 0
+// (butterflies within each warp, one barrier, a butterfly over the warps).
+template <typename T, bool EQUAL>
+__device__ __forceinline__ Moments<T> block_merge(Moments<T> s,
+                                                  WarpStats<T>& sh) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  s = warp_merge<T, EQUAL, 32>(s);
+  if (lane == 0) {
+    sh.count[warp] = s.count;
+    sh.me[warp] = s.mean_e;
+    sh.m2e[warp] = s.m2_e;
+    sh.ml[warp] = s.mean_lw;
+    sh.m2l[warp] = s.m2_lw;
+  }
+  __syncthreads();
+  Moments<T> w = {T(0), T(0), T(0), T(0), T(0)};
+  if (warp == 0) {
+    if (lane < WARPS) {
+      w.count = sh.count[lane];
+      w.mean_e = sh.me[lane];
+      w.m2_e = sh.m2e[lane];
+      w.mean_lw = sh.ml[lane];
+      w.m2_lw = sh.m2l[lane];
+    }
+    w = warp_merge<T, EQUAL, WARPS>(w);
+  }
+  return w;
+}
+
 // The chunk's partial row from the log-weights each thread holds in
 // registers.  FULL: every v[k] is valid, so all groups have equal counts
 // at every level, a thread's moments come from two passes over its
@@ -260,20 +269,11 @@ __device__ __forceinline__ void chunk_partials_of(const T (&v)[ITEMS],
                                                   const bool (&ok)[ITEMS],
                                                   T alpha, WarpStats<T>& sh,
                                                   T* out_row) {
-  const unsigned all = 0xffffffffu;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   T m = T(-INFINITY);
 #pragma unroll
   for (int k = 0; k < ITEMS; ++k)
     if (FULL || ok[k]) m = nan_max(m, v[k]);
-#pragma unroll
-  for (int k = 16; k > 0; k >>= 1)
-    m = nan_max(m, __shfl_xor_sync(all, m, k));
-  if (lane == 0) sh.max_buf[warp] = m;
-  __syncthreads();
-  m = sh.max_buf[0];
-#pragma unroll
-  for (int w = 1; w < WARPS; ++w) m = nan_max(m, sh.max_buf[w]);
+  m = block_nan_max(m, sh);
 
   Moments<T> s = {T(0), T(0), T(0), T(0), T(0)};
   if (FULL) {
@@ -299,33 +299,14 @@ __device__ __forceinline__ void chunk_partials_of(const T (&v)[ITEMS],
     for (int k = 0; k < ITEMS; ++k)
       if (ok[k]) welford(s, pow_alpha(v[k] - m, alpha), v[k]);
   }
-  s = warp_merge<T, FULL, 32>(s);
-  if (lane == 0) {
-    sh.count[warp] = s.count;
-    sh.me[warp] = s.mean_e;
-    sh.m2e[warp] = s.m2_e;
-    sh.ml[warp] = s.mean_lw;
-    sh.m2l[warp] = s.m2_lw;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    Moments<T> w = {T(0), T(0), T(0), T(0), T(0)};
-    if (lane < WARPS) {
-      w.count = sh.count[lane];
-      w.mean_e = sh.me[lane];
-      w.m2_e = sh.m2e[lane];
-      w.mean_lw = sh.ml[lane];
-      w.m2_lw = sh.m2l[lane];
-    }
-    w = warp_merge<T, FULL, WARPS>(w);
-    if (lane == 0) {
-      out_row[0] = w.count;
-      out_row[1] = m;
-      out_row[2] = w.mean_e;
-      out_row[3] = w.m2_e;
-      out_row[4] = w.mean_lw;
-      out_row[5] = w.m2_lw;
-    }
+  Moments<T> w = block_merge<T, FULL>(s, sh);
+  if (threadIdx.x == 0) {
+    out_row[0] = w.count;
+    out_row[1] = m;
+    out_row[2] = w.mean_e;
+    out_row[3] = w.m2_e;
+    out_row[4] = w.mean_lw;
+    out_row[5] = w.m2_lw;
   }
 }
 
@@ -340,6 +321,79 @@ __device__ __forceinline__ void chunk_partials(const T (&v)[ITEMS],
     chunk_partials_of<T, true>(v, ok, alpha, sh, out_row);
   else
     chunk_partials_of<T, false>(v, ok, alpha, sh, out_row);
+}
+
+// The combine, by one block: the n_chunks partial rows to [M, mean_e,
+// std_e, mean_lw, std_lw] (population std).  Thread t takes rows t,
+// t + THREADS, ...; first the global max M by shuffles, then each row is
+// rescaled by r_b = exp(m_b - M)^alpha (mean by r_b, M2 by r_b^2; an r_b
+// that underflows to 0 leaves a finite zero-weight group) and merged, in
+// the thread (every row but the ragged last holds CHUNK samples, so a
+// thread's first two rows, or any two groups of as many full rows, merge
+// without a division) and then by the butterflies of block_merge.  NaN
+// propagates through M.  Its time is a chain of dependent steps, the
+// longest of them the trips to memory: a thread loads its first
+// ROWS_KEPT rows whole at once and keeps them in registers for the merge,
+// so up to THREADS x ROWS_KEPT rows (the paths' 1221 and 489) take one
+// trip; rows beyond that are read again after the max.  The loops are not
+// unrolled: the code runs once, often not yet in any cache.
+constexpr int ROWS_KEPT = 5;
+
+// rows b0, b0 + THREADS, ... (ROWS_KEPT of them) whole; count 0 past the
+// last
+template <typename T>
+__device__ __forceinline__ void load_rows(const T* partials,
+                                          int64_t n_chunks, int64_t b0,
+                                          T (&row)[ROWS_KEPT][NPART]) {
+#pragma unroll
+  for (int u = 0; u < ROWS_KEPT; ++u) {
+    int64_t b = b0 + int64_t(u) * THREADS;
+#pragma unroll
+    for (int j = 0; j < NPART; ++j)
+      row[u][j] = b < n_chunks ? partials[b * NPART + j] : T(0);
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void combine_rows(const T* partials,
+                                             int64_t n_chunks, T alpha,
+                                             WarpStats<T>& sh, T* out) {
+  constexpr int64_t STEP = int64_t(ROWS_KEPT) * THREADS;
+  T row[ROWS_KEPT][NPART];
+  load_rows(partials, n_chunks, threadIdx.x, row);
+  T m = T(-INFINITY);
+#pragma unroll
+  for (int u = 0; u < ROWS_KEPT; ++u)
+    if (row[u][0] != T(0)) m = nan_max(m, row[u][1]);
+#pragma unroll 1
+  for (int64_t b = threadIdx.x + STEP; b < n_chunks; b += THREADS)
+    m = nan_max(m, partials[b * NPART + 1]);
+  m = block_nan_max(m, sh);
+
+  Moments<T> s = {T(0), T(0), T(0), T(0), T(0)};
+#pragma unroll 1
+  for (int64_t b0 = threadIdx.x; b0 < n_chunks; b0 += STEP) {
+    if (b0 != threadIdx.x) load_rows(partials, n_chunks, b0, row);
+#pragma unroll
+    for (int u = 0; u < ROWS_KEPT; ++u) {
+      if (row[u][0] == T(0)) continue;  // past the last row
+      T r = pow_alpha(row[u][1] - m, alpha);
+      Moments<T> g = {row[u][0], row[u][2] * r, row[u][3] * r * r,
+                      row[u][4], row[u][5]};
+      if (s.count == T(0))
+        s = g;
+      else
+        merge_any(s, g);
+    }
+  }
+  Moments<T> w = block_merge<T, false>(s, sh);
+  if (threadIdx.x == 0) {
+    out[0] = m;
+    out[1] = w.mean_e;
+    out[2] = d_sqrt(w.m2_e / w.count);
+    out[3] = w.mean_lw;
+    out[4] = d_sqrt(w.m2_lw / w.count);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -374,6 +428,32 @@ struct ModelSpec {
                                 // funnel: N(0, s) on log_sigma
 };
 
+// A regression row as staged: x_k0 .. x_k(d-1), y_k, then zeros to a whole
+// number of 16-byte words, so that every row starts on 16 bytes: 12
+// values at d = 10 in float and in double; equals regression_row in
+// ops/limits.py.
+template <typename T>
+__host__ __device__ constexpr int regression_row(int d) {
+  constexpr int W = 16 / int(sizeof(T));
+  return (d + 1 + W - 1) / W * W;
+}
+
+// out[O..N) from p (16-byte aligned) by the widest aligned words that
+// hold only those values: 16 bytes while a whole one fits, then 8, then
+// one value (x_k, y_k at d = 10 in float: 16 + 16 + 8 + 4 bytes).  The
+// pad is never loaded, so it costs no register.
+template <typename T, int N, int O = 0>
+__device__ __forceinline__ void read_words(const T* p, T (&out)[N]) {
+  if constexpr (O < N) {
+    constexpr int V16 = 16 / int(sizeof(T)), V8 = 8 / int(sizeof(T));
+    constexpr int W = N - O >= V16 ? V16 : N - O >= V8 ? V8 : 1;
+    Pack<T, W> word = *reinterpret_cast<const Pack<T, W>*>(p + O);
+#pragma unroll
+    for (int e = 0; e < W; ++e) out[O + e] = word.v[e];
+    read_words<T, N, O + W>(p, out);
+  }
+}
+
 template <typename T>
 struct ModelArgs {
   int kind, n_rows, student_t;
@@ -393,11 +473,13 @@ struct ModelArgs {
         inv_noise(T(m.noise_scale > 0.0 ? 1.0 / m.noise_scale : 0.0)),
         inv_prior(T(m.prior_std > 0.0 ? 1.0 / m.prior_std : 0.0)) {}
 
-  // values of a and b, staged into shared memory
-  __host__ __device__ int n_a(int d) const {
-    return kind == FUNNEL ? 0 : kind == REGRESSION ? n_rows * d : n_rows;
+  // values staged in shared memory after the mean and scale: eight-schools'
+  // y (sigma enters through ModelConsts), a regression's padded rows
+  __host__ __device__ int staged_values(int d) const {
+    return kind == REGRESSION ? n_rows * regression_row<T>(d)
+           : schools()        ? n_rows
+                              : 0;
   }
-  __host__ __device__ int n_b() const { return kind == FUNNEL ? 0 : n_rows; }
   __host__ __device__ bool schools() const {
     return kind == EIGHT_SCHOOLS_CP || kind == EIGHT_SCHOOLS_NCP;
   }
@@ -459,20 +541,33 @@ __device__ __forceinline__ T eight_schools_cp(const T (&x)[MAXD],
 // viabel_tpu_torch/models/regression.py: mu_k = sum_j x_kj beta_j in plain
 // FMA loops (no tensor cores, so no TF32), then a Gaussian or Student-t
 // likelihood of scale noise_scale and an N(0, prior_std) prior, the
-// scales and df by their reciprocals.  x and y are in shared memory; every
-// thread of a warp reads the same row, which the hardware broadcasts.
-template <typename T, int MAXD>
+// scales and df by their reciprocals.  The rows sit in shared memory,
+// padded (regression_row), so that a compile-time-d instance reads each
+// in 16-byte words (read_words); every thread of a warp reads the same
+// row, which the hardware broadcasts.  The runtime-d instance reads value
+// by value.
+template <typename T, int MAXD, int D_FIXED>
 __device__ __forceinline__ T regression(const T (&beta)[MAXD], int d,
-                                        const T* x, const T* y,
+                                        const T* rows,
                                         const ModelArgs<T>& m) {
   T acc = T(0);  // sum of z^2 (Gaussian) or of log1p(z^2 / df) (Student-t)
+  const int rs = regression_row<T>(d);
   for (int k = 0; k < m.n_rows; ++k) {
-    const T* xk = x + k * d;
-    T mu = T(0);
+    const T* row = rows + k * rs;
+    T mu = T(0), y;
+    if constexpr (D_FIXED > 0) {
+      T r[D_FIXED + 1];
+      read_words<T, D_FIXED + 1>(row, r);
 #pragma unroll
-    for (int j = 0; j < MAXD; ++j)
-      if (j < d) mu = d_fma(xk[j], beta[j], mu);
-    T z = (y[k] - mu) * m.inv_noise;
+      for (int j = 0; j < D_FIXED; ++j) mu = d_fma(r[j], beta[j], mu);
+      y = r[D_FIXED];
+    } else {
+#pragma unroll
+      for (int j = 0; j < MAXD; ++j)
+        if (j < d) mu = d_fma(row[j], beta[j], mu);
+      y = row[d];
+    }
+    T z = (y - mu) * m.inv_noise;
     if (m.student_t)
       acc += d_log1p(z * z * m.inv_df);
     else
@@ -533,17 +628,18 @@ __device__ __forceinline__ T funnel(const T (&x)[MAXD],
 
 // An instance of dimension MAXD compiles only the densities it can hold;
 // the host refuses an eight-schools launch at any d but 10.
-template <typename T, int MAXD>
+template <typename T, int MAXD, int D_FIXED>
 __device__ __forceinline__ T model_log_density(const T (&x)[MAXD], int d,
-                                               const T* s_a, const T* s_b,
+                                               const T* s_data,
                                                const ModelArgs<T>& m,
                                                const ModelConsts<T>& k) {
-  if (m.kind == REGRESSION) return regression<T, MAXD>(x, d, s_a, s_b, m);
+  if (m.kind == REGRESSION)
+    return regression<T, MAXD, D_FIXED>(x, d, s_data, m);
   if (m.kind == FUNNEL) return funnel<T, MAXD>(x, m);
   if constexpr (MAXD >= 2 + SCHOOLS) {
     if (m.kind == EIGHT_SCHOOLS_NCP)
-      return eight_schools_ncp<T, MAXD>(x, s_a, k);
-    return eight_schools_cp<T, MAXD>(x, s_a, k);
+      return eight_schools_ncp<T, MAXD>(x, s_data, k);
+    return eight_schools_cp<T, MAXD>(x, s_data, k);
   }
   return T(0);
 }
@@ -632,12 +728,6 @@ __device__ __forceinline__ void philox_normals(uint64_t sample,
 // ---------------------------------------------------------------------------
 // Rows of z as words, and the asynchronous copies of K1's ring.
 // ---------------------------------------------------------------------------
-
-// N values of T as one aligned word of 4, 8 or 16 bytes
-template <typename T, int N>
-struct alignas(sizeof(T) * N) Pack {
-  T v[N];
-};
 
 // The widest word (up to 16 bytes) that divides a row of D values of T,
 // in values: 2 for float at d = 10 (rows 40 B apart) and at d = 2, 2 for
@@ -768,16 +858,17 @@ struct PhiloxDraws {
 };
 
 // Dynamic shared memory of the score kernel: the ring (a staged instance
-// only), then mean and exp(log_scale) (MAXD each), then the model's a and
-// b arrays.
+// only), then mean and exp(log_scale) (MAXD each), then the model's staged
+// data (ModelArgs::staged_values), 16-byte aligned.
 template <typename T, int MAXD, bool STAGED>
 __host__ __device__ constexpr size_t ring_bytes() {
   return STAGED ? sizeof(T) * STAGES * THREADS * MAXD : 0;
 }
 template <typename T, int MAXD, bool STAGED>
 inline size_t score_smem_bytes(const ModelArgs<T>& m, int d) {
+  static_assert(2 * MAXD * sizeof(T) % 16 == 0, "staged rows start aligned");
   return ring_bytes<T, MAXD, STAGED>() +
-         sizeof(T) * (2 * MAXD + m.n_a(d) + m.n_b());
+         sizeof(T) * (2 * MAXD + m.staged_values(d));
 }
 
 // Copy this warp's 32 rows of sub-tile k (THREADS rows of D values) of
@@ -831,8 +922,7 @@ __global__ void __launch_bounds__(
   T* ring = reinterpret_cast<T*>(smem_raw);
   T* s_mean = reinterpret_cast<T*>(smem_raw + ring_bytes<T, MAXD, STAGED>());
   T* s_scale = s_mean + MAXD;
-  T* s_a = s_scale + MAXD;
-  T* s_b = s_a + model.n_a(d);
+  T* s_data = s_scale + MAXD;
 
   bool use_ring = false;
   if constexpr (STAGED) {
@@ -845,10 +935,15 @@ __global__ void __launch_bounds__(
     s_mean[j] = j < d ? mean[j] : T(0);
     s_scale[j] = j < d ? d_exp(log_scale[j]) : T(0);
   }
-  for (int j = threadIdx.x; j < model.n_a(d); j += THREADS)
-    s_a[j] = model.a[j];
-  for (int j = threadIdx.x; j < model.n_b(); j += THREADS)
-    s_b[j] = model.b[j];
+  const int rs = regression_row<T>(d);
+  for (int j = threadIdx.x; j < model.staged_values(d); j += THREADS) {
+    if (model.kind == REGRESSION) {  // row k: x_k, y_k, zeros
+      int k = j / rs, c = j - k * rs;
+      s_data[j] = c < d ? model.a[k * d + c] : c == d ? model.b[k] : T(0);
+    } else {
+      s_data[j] = model.a[j];
+    }
+  }
   T sum_log_scale = T(0);
   for (int j = 0; j < d; ++j) sum_log_scale += log_scale[j];
   if (model.schools() && threadIdx.x < SCHOOLS) {
@@ -895,7 +990,8 @@ __global__ void __launch_bounds__(
 #pragma unroll
       for (int j = 0; j < MAXD; ++j)
         if (j < d) x[j] = s_mean[j] + s_scale[j] * x[j];
-      v[k] = model_log_density<T, MAXD>(x, d, s_a, s_b, model, consts) - logq;
+      v[k] = model_log_density<T, MAXD, D_FIXED>(x, d, s_data, model,
+                                                 consts) - logq;
       lw[i] = v[k];
     }
     chunk_partials(v, ok, base, n, alpha, sh, partials + c * NPART);

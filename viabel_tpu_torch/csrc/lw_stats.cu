@@ -20,7 +20,8 @@
 //   (viabel_tpu/ops/sample_score.py:108-142 at 2e6dc2c^): the same
 //   per-chunk partials over an existing lw vector.
 // * combine_partials replaces the _combine_tiles epilogue
-//   (viabel_tpu/ops/sample_score.py:67-91 at 2e6dc2c^).
+//   (viabel_tpu/ops/sample_score.py:67-91 at 2e6dc2c^): one block reduces
+//   the partials rows to the five statistics (combine_rows).
 //
 // What bounds them on an H100 (PERF.md has the times).  K1 reads 4 d + 4
 // bytes a sample and spends several hundred instructions on it (the
@@ -34,16 +35,16 @@
 // then makes each load whole: z at d = 10 comes through a shared-memory
 // ring of cp.async copies, d = 2 reads one word a row, and the grid is what
 // the card holds at once (bound_pass.cuh).  K3 moves 4 bytes a sample, is
-// bound by bytes and shares K1's shuffle statistics.  combine_partials
-// reads a few KB in one block; its time is launch latency.
+// bound by bytes and shares K1's shuffle statistics.  The combine reads a
+// few KB: one block cannot approach its bytes bound, and its time is a
+// chain of dependent steps, so it takes shuffles and a single barrier a
+// step.
 
 #include "bound_pass.cuh"
 
 using namespace bound_pass;
 
 namespace {
-
-constexpr int COMBINE_THREADS = 512;
 
 // K3: the same partials over an existing lw vector.
 template <typename T>
@@ -65,42 +66,13 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-// combine: one block.  Rescale each chunk to the global max M with
-// r_b = exp(m_b - M)^alpha (mean by r_b, M2 by r_b^2; an r_b that
-// underflows to 0 leaves a finite zero-weight group), merge by Chan's rule,
-// and write [M, mean_e, std_e, mean_lw, std_lw] with population std.
+// The combine on its own: combine_rows in one block.
 template <typename T>
-__global__ void __launch_bounds__(COMBINE_THREADS)
+__global__ void __launch_bounds__(THREADS)
     combine_partials_kernel(const T* __restrict__ partials, int64_t n_chunks,
                             T alpha, T* __restrict__ out) {
-  __shared__ T s_max[COMBINE_THREADS];
-  __shared__ double s_n[COMBINE_THREADS];
-  __shared__ T s_me[COMBINE_THREADS], s_m2e[COMBINE_THREADS];
-  __shared__ T s_ml[COMBINE_THREADS], s_m2l[COMBINE_THREADS];
-  int tid = threadIdx.x;
-  T tmax = T(-INFINITY);
-  for (int64_t b = tid; b < n_chunks; b += COMBINE_THREADS)
-    tmax = nan_max(tmax, partials[b * NPART + 1]);
-  T M = block_max<T, COMBINE_THREADS>(tmax, s_max);
-
-  double n = 0.0, n2 = 0.0;
-  T me = T(0), m2e = T(0), ml = T(0), m2l = T(0);
-  for (int64_t b = tid; b < n_chunks; b += COMBINE_THREADS) {
-    const T* row = partials + b * NPART;
-    T r = pow_alpha(row[1] - M, alpha);
-    double nb = double(row[0]);
-    chan(n, me, m2e, nb, row[2] * r, row[3] * r * r);
-    chan(n2, ml, m2l, nb, row[4], row[5]);
-  }
-  block_chan<T, COMBINE_THREADS>(n, me, m2e, ml, m2l, s_n, s_me, s_m2e, s_ml,
-                                 s_m2l);
-  if (tid == 0) {
-    out[0] = M;
-    out[1] = me;
-    out[2] = d_sqrt(m2e / T(n));
-    out[3] = ml;
-    out[4] = d_sqrt(m2l / T(n));
-  }
+  __shared__ WarpStats<T> sh;
+  combine_rows(partials, n_chunks, alpha, sh, out);
 }
 
 template <typename T>
@@ -123,6 +95,7 @@ int launch_transform_score(const void* z, const void* mean,
 template <typename T>
 int launch_lw_partials(const void* lw, long long n, double alpha,
                        void* partials, void* stream) {
+  if (n < 1) return int(cudaErrorInvalidValue);
   int64_t nc = chunks_of(n);
   lw_partials_kernel<T>
       <<<grid_of(nc), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
@@ -134,8 +107,9 @@ int launch_lw_partials(const void* lw, long long n, double alpha,
 template <typename T>
 int launch_combine(const void* partials, long long n_chunks, double alpha,
                    void* out, void* stream) {
+  if (n_chunks < 1) return int(cudaErrorInvalidValue);
   combine_partials_kernel<T>
-      <<<1, COMBINE_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      <<<1, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
           static_cast<const T*>(partials), n_chunks, T(alpha),
           static_cast<T*>(out));
   return int(cudaGetLastError());

@@ -11,7 +11,8 @@ PyTorch port of viabel_tpu/models/regression.py:29-132:
   both packages see identical data.
 
 A model whose data the fused bound-pass kernels take (``D <=
-ops.limits.MAX_DIM`` and x and y fit their shared memory in float64)
+ops.limits.MAX_DIM`` and x and y, staged as rows padded to 16-byte
+words (``ops.limits.regression_row``), fit their shared memory in float64)
 carries ``kernel='regression'``: those kernels score it with the CUDA
 regression density, which reads ``kernel_data = (x (N, D), y (N,), df,
 noise_scale, prior_std)`` with ``df`` None for the Gaussian likelihood.
@@ -72,7 +73,7 @@ def _regression_model(x, y, df, noise_scale, prior_std, name, true_mean,
         return lp[0] if beta.dim() == 1 else lp
 
     kernel = kernel_data = None
-    if limits.fits(D, N * (D + 1), x.itemsize):
+    if limits.fits(D, N * limits.regression_row(D, x.itemsize), x.itemsize):
         kernel = 'regression'
         kernel_data = data.host + (df, noise_scale, prior_std)
     return Model(log_prob, D, name, true_mean, true_cov,

@@ -6,10 +6,19 @@ stages the variational mean and scale and the model's data.
 carries its kernel tag only where its data fits (`models.regression`).
 """
 
-__all__ = ['MAX_DIM', 'MAX_STAGED_BYTES', 'staged_bytes', 'fits']
+__all__ = ['MAX_DIM', 'MAX_STAGED_BYTES', 'staged_bytes', 'fits',
+           'regression_row']
 
 MAX_DIM = 32                   # equals MAX_DIM in the .cuh
 MAX_STAGED_BYTES = 96 * 1024   # equals MAX_STAGED_BYTES in the .cuh
+
+
+def regression_row(d, itemsize):
+    """Values of one regression row as the score kernels stage it: x_k,
+    y_k, then zeros to a whole number of 16-byte words (``regression_row``
+    in the .cuh)."""
+    word = 16 // itemsize
+    return -(-(d + 1) // word) * word
 
 
 def staged_bytes(n_values, itemsize):

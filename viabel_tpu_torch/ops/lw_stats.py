@@ -56,7 +56,7 @@ from ..models.eight_schools import cp_log_density, ncp_log_density
 from ..models.funnel import funnel_log_density
 from ..models.regression import regression_log_density
 from . import _build
-from .limits import MAX_DIM, MAX_STAGED_BYTES, staged_bytes
+from .limits import MAX_DIM, MAX_STAGED_BYTES, regression_row, staged_bytes
 
 __all__ = [
     'CHUNK', 'MAX_DIM', 'KERNEL_MODELS', 'launches', 'reset_launches',
@@ -98,14 +98,15 @@ class ModelSpec(ctypes.Structure):
 
 
 _ptr = ctypes.c_void_p
+_SCORE_ARGS = [_ptr] * 3 + [
+    ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_double,
+    ctypes.c_double, ctypes.c_double, ctypes.POINTER(ModelSpec), _ptr, _ptr]
+_LW_ARGS = [_ptr, ctypes.c_longlong, ctypes.c_double, _ptr]
+# each entry point's arguments before the stream
 _SIGNATURES = {
-    'transform_score_partials': [_ptr] * 3 + [
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_double,
-        ctypes.c_double, ctypes.c_double, ctypes.POINTER(ModelSpec), _ptr,
-        _ptr],
-    'lw_partials': [_ptr, ctypes.c_longlong, ctypes.c_double, _ptr, _ptr],
-    'combine_partials': [_ptr, ctypes.c_longlong, ctypes.c_double, _ptr,
-                         _ptr],
+    'transform_score_partials': _SCORE_ARGS,
+    'lw_partials': _LW_ARGS,
+    'combine_partials': [_ptr, ctypes.c_longlong, ctypes.c_double, _ptr],
 }
 _SUFFIX = {torch.float32: 'f32', torch.float64: 'f64'}
 
@@ -117,7 +118,7 @@ def _lib():
     for name, argtypes in _SIGNATURES.items():
         for suffix in _SUFFIX.values():
             fn = getattr(lib, '{}_{}'.format(name, suffix))
-            fn.argtypes = argtypes
+            fn.argtypes = argtypes + [_ptr]  # + the stream
             fn.restype = ctypes.c_int
     check_layout(lib, 'lw_stats')
     return lib
@@ -277,7 +278,7 @@ def check_kernel_model(kernel, kernel_data, d, itemsize):
                 != [(_SCHOOLS,)] * 2):
             raise ValueError('{} needs d = {} and y and sigma of {} schools'
                              .format(kernel, 2 + _SCHOOLS, _SCHOOLS))
-        staged = 2 * _SCHOOLS
+        staged = _SCHOOLS  # y; sigma enters through the launch's constants
     elif kernel == 'funnel':
         if d != _FUNNEL_DIM or len(kernel_data) != 1:
             raise ValueError('{} needs d = {} and (log_sigma_stdev,), got '
@@ -290,7 +291,7 @@ def check_kernel_model(kernel, kernel_data, d, itemsize):
             raise ValueError('{} needs x (N, {}) and y (N,), got {} and {}'
                              .format(kernel, d, tuple(xd.shape),
                                      tuple(y.shape)))
-        staged = xd.shape[0] * (d + 1)
+        staged = xd.shape[0] * regression_row(d, itemsize)
     nbytes = staged_bytes(staged, itemsize)
     if nbytes > MAX_STAGED_BYTES:
         raise ValueError('{} data of {} bytes exceeds the {} bytes of shared '

@@ -2,8 +2,9 @@
 """Smoke run of the PyTorch port on one CUDA card: build, check, drive.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --kernels-only   # phases 1, 3, 7 and 11 alone, at
-                                           # stand-in fits; no result line
+    python3 chip_smoke.py --kernels-only   # phases 1, 3, 7 and 11 and the
+                                           # step kernel's check and time,
+                                           # at stand-in fits; no result line
 
 Phases, each printed as it goes; any failure exits non-zero before the
 result line:
@@ -16,24 +17,35 @@ result line:
    with a mean-field Student-t(40) family (5000 presampled-KLVI adagrad
    iterations, n_mc = 100, lr 0.01 -> 0.001, a 2.5e6-sample bound pass,
    PSIS) in float32, then ``get_samples_and_log_weights`` + ``all_bounds``
-   at 2.5e6 samples; bounds and khat must be finite and K1, K3 and the
-   combine must have launched;
+   at 2.5e6 samples; bounds and khat must be finite, K1, K3, the combine
+   and the adagrad step kernel must have launched, the step once an
+   iteration and every iteration after the window's warm-up from a
+   replayed CUDA graph;
 3. K1, K3 and the combine against their plain PyTorch versions at that
    path's shapes (the fitted q, n = 2.5e6, d = 10) in float64 (logic:
    1e-10 relative) and float32 (lw atol 2e-4 + rtol 2e-6, statistics rtol
-   2e-5), K1 again at an n that leaves a ragged tile and at a z whose
-   address is 8 bytes off a multiple of 16, then each kernel's two times
-   and its plain version's time in float32: CUDA events around the
-   wrapper's call (median of 15 launches after 3 warm-ups, L2 flushed
-   before each), and the kernel's own duration on the card by name from a
-   ``torch.profiler`` trace (mean of 10 launches, L2 flushed before each);
-4. that path's pipeline core at a small size on the card (kernels) against
-   the same on the CPU (plain versions), float64, on shared draws;
+   2e-5), K1 and K3 again at an n that leaves a ragged tile and at an
+   input one value off a multiple of 16 bytes, K3 and the combine with
+   log-weights of -inf or +inf (against the plain versions and the
+   reference's mean_lw and std_lw), then each kernel's two times and its
+   plain version's time in float32 (K3 also at n = 1e6): CUDA events
+   around the wrapper's call (median of 15 launches after 3 warm-ups, L2
+   flushed before each), and the kernel's own duration on the card by
+   name from a ``torch.profiler`` trace (mean of 10 launches, L2 flushed
+   before each);
+4. that path's pipeline core at a small size on the card (kernels, the
+   adagrad run as a replayed graph) against the same on the CPU (plain
+   versions), float64, on shared draws; then the graph run against the
+   eager run of the same body on the card, float64, 2000 iterations, KLVI
+   and CHIVI (1e-10 relative);
 5. where its time goes, at steady state: ``validated_vi`` again, the
-   optimizer alone (it/s, over 2000 iterations), the bound pass's draws
-   and fused score, PSIS,
-   and the card's busy share during the optimizer (``torch.profiler``; a
-   trace without device time fails the run);
+   bound pass's draws and fused score, PSIS; the optimizer alone (KLVI
+   and CHIVI on eight-schools CP, 2000 iterations, float32) through the
+   graph and through the eager loop in turns (graph, eager, eager, graph),
+   and under each the card's busy share and kernels an iteration
+   (``torch.profiler``; a trace without device time fails the run); the
+   step kernel against its plain version (float64 and float32) and their
+   times;
 6. the regression path, with every launch count set to 0 just before it
    and read just after: ``rmsprop_IA_optimize_with_rhat`` on Bayesian
    linear regression (N = 100, D = 10, 4 chains, 5000 iterations, n_mc =
@@ -67,10 +79,11 @@ result line:
     float32) on eight-schools NCP (5000 + 5000 iterations from the stored
     NCP moments, examples/eight_schools.py ``--full``) and on the funnel
     (10000 + 10000 iterations from ``[0, -1, 1, 1]``, examples/funnel.py
-    ``--full``); every khat, d2, W2 and mean error must be finite, K1, K3
-    and the combine must have launched, and each of the four khats must lie
-    within |z| < 3 of the JAX package's 16-seed band; then the card's busy
-    share during 500 CHIVI iterations (``torch.profiler``);
+    ``--full``); every khat, d2, W2 and mean error must be finite, K1, K3,
+    the combine and the step kernel must have launched (the step as in
+    phase 2), and each of the four khats must lie within |z| < 3 of the
+    JAX package's 16-seed band; then the card's busy share during 500
+    CHIVI iterations through the graph (``torch.profiler``);
 11. K1 and K2 with the NCP and funnel densities against their plain
     versions at that path's shapes (the fitted q, n = 1e6; f64 to 1e-10,
     f32 to the K1 tolerances but the funnel's lw rtol 3e-5, printed with
@@ -88,10 +101,13 @@ operations are counted at the float32 rate, and a division or a
 transcendental as one operation though it costs the card many
 instructions) and the library call's time (``torch.randn`` for
 ``philox_normal``; no single PyTorch call computes the others, so theirs
-is null).  The last line is
+is null).  The adagrad step's row replaces no Pallas kernel but the body
+of the JAX package's compiled scan; its launches are its executions,
+graph replays included.  The last line is
 ``{"ok": true, "device": {...}}``.
 """
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -106,6 +122,7 @@ sys.path.insert(0, HERE)
 
 N_ITERS, N_MC, N_BOUND = 5000, 100, 2_500_000
 N_OPT_ALONE = 2000   # phase 5 times the optimizer alone at this depth
+WINDOW = 10          # adagrad's window, the iterations a graph run warms up
 # the regression path (examples/linear_regression_ia.py main(full=True),
 # depth cut from 20000 iterations to 5000)
 IA_ITERS, IA_CHAINS, IA_LR, IA_BOUND = 5000, 4, 0.02, 1_000_000
@@ -172,18 +189,22 @@ REPLACES = {
         'viabel_tpu/ops/sample_score.py:164 (_box_muller and '
         '_uniform_from_bits, the PRNG of fused_gaussian_lw_stats, at '
         '2e6dc2c^)',
+    'adagrad_step':
+        'viabel_tpu/optimizers.py:201-230 (_make_adagrad_step, the body of '
+        'the compiled lax.scan; no Pallas kernel)',
 }
 SOURCE = {'transform_score_partials': 'lw_stats.cu', 'lw_partials':
           'lw_stats.cu', 'combine_partials': 'lw_stats.cu',
           'gaussian_sample_score_partials': 'gaussian_lw.cu',
-          'philox_normal': 'gaussian_lw.cu'}
+          'philox_normal': 'gaussian_lw.cu', 'adagrad_step': 'adagrad.cu'}
 # device kernel names in nvcc's output -> the wrapper that launches them
 _MANGLED = (('LoadedDraws', 'transform_score_partials'),
             ('PhiloxDraws', 'gaussian_sample_score_partials'),
             ('lw_partials_kernel', 'lw_partials'),
             ('combine_partials_kernel', 'combine_partials'),
             ('philox_normal_kernel', 'philox_normal'),
-            ('philox_bits_kernel', 'philox_bits'))
+            ('philox_bits_kernel', 'philox_bits'),
+            ('adagrad_step_kernel', 'adagrad_step'))
 # the wrapper -> the part of its device kernel's name that a trace shows
 KERNEL_KEY = {wrapper: key for key, wrapper in _MANGLED}
 RANDN_KEY = 'distribution_elementwise'  # torch.randn's kernel, in a trace
@@ -247,17 +268,19 @@ def median_ms(fn, reps=15, warmup=3):
     return statistics.median(times)
 
 
-def device_ms(fn, key, reps=10, attempts=6):
+def device_ms(fn, key, reps=10, attempts=6, clean=False):
     """Mean duration on the card of the kernel whose name holds `key`, from
     a ``torch.profiler`` trace of `reps` calls of ``fn()`` with the L2 cache
-    flushed before each.  Unlike `median_ms` it holds none of the time the
-    host takes to enqueue the launch, nor the copies and casts the wrapper
-    makes before it.  A trace now and then comes back without its kernel
-    records (up to three traces in a row, after a short trace as after a
-    long one), so a trace without the kernel is taken again after a pause,
-    `attempts` times in all; then this returns None (not measured).  It
-    times, and checks nothing: the kernels' launches and results are held
-    elsewhere."""
+    flushed before each.  The flush writes 256 MB, so the kernel finds L2
+    full of dirty lines and its reads make the card write them back; with
+    `clean` it reads the 256 MB instead, leaving clean lines.  Unlike
+    `median_ms` it holds none of the time the host takes to enqueue the
+    launch, nor the copies and casts the wrapper makes before it.  A trace
+    now and then comes back without its kernel records (up to three traces
+    in a row, after a short trace as after a long one), so a trace without
+    the kernel is taken again after a pause, `attempts` times in all; then
+    this returns None (not measured).  It times, and checks nothing: the
+    kernels' launches and results are held elsewhere."""
     from torch.profiler import ProfilerActivity, profile
 
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32, device='cuda')
@@ -269,7 +292,10 @@ def device_ms(fn, key, reps=10, attempts=6):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
-                flush.zero_()
+                if clean:
+                    flush.sum()
+                else:
+                    flush.zero_()
                 fn()
             torch.cuda.synchronize()
         hits = [e for e in prof.key_averages()
@@ -300,14 +326,33 @@ def check_close(name, got, want, atol, rtol):
 
 
 def reset_launches():
-    from viabel_tpu_torch.ops import gaussian_lw, lw_stats
+    from viabel_tpu_torch.ops import adagrad, gaussian_lw, lw_stats
     lw_stats.reset_launches()
     gaussian_lw.reset_launches()
+    adagrad.reset_launches()
 
 
 def read_launches():
-    from viabel_tpu_torch.ops import gaussian_lw, lw_stats
-    return {**lw_stats.launches, **gaussian_lw.launches}
+    """Every kernel's launches, and under ``'adagrad_step (replayed)'`` the
+    step kernel's executions that came from graph replays."""
+    from viabel_tpu_torch.ops import adagrad, gaussian_lw, lw_stats
+    return {**lw_stats.launches, **gaussian_lw.launches, **adagrad.launches,
+            'adagrad_step (replayed)': adagrad.replayed['adagrad_step']}
+
+
+def require_adagrad_steps(launches, runs, path):
+    """Every adagrad run of a path went through the step kernel: one
+    execution an iteration, and every iteration after each run's
+    `WINDOW` eager ones a graph replay (`runs` lists the runs' lengths)."""
+    want = sum(runs)
+    want_replayed = sum(max(r - WINDOW, 0) for r in runs)
+    got = (launches['adagrad_step'], launches['adagrad_step (replayed)'])
+    log('adagrad_step on the {} path: {} executions ({} from graph '
+        'replays) for {} iterations'.format(path, got[0], got[1], want))
+    if got != (want, want_replayed):
+        raise AssertionError('the {} path ran {} adagrad steps ({} replayed), '
+                             'expected {} ({} replayed)'.format(
+                                 path, got[0], got[1], want, want_replayed))
 
 
 def require_launched(launches, names, path):
@@ -373,8 +418,9 @@ def main_path(vt, model, fam):
     b = out['bounds']
     log('validated_vi (first call, {} iters + {:.1e}-sample bound pass + '
         'PSIS): {:.3f} s'.format(N_ITERS, N_BOUND, t_vvi))
-    log('  d2 = {!r}, khat = {!r}, W2 = {!r}'.format(
-        float(b['d2']), out['khat'], b['W2']))
+    log('  d2 = {!r}, khat = {!r} (the eager loop before the step kernel '
+        'and the graph: d2 15.52, khat 1.002), W2 = {!r}'.format(
+            float(b['d2']), out['khat'], b['W2']))
     log('  q mean head = {}'.format(out['q_mean'][:3].cpu().tolist()))
     log('  psis mean head = {}'.format(out['psis_mean'][:3].cpu().tolist()))
     log('get_samples_and_log_weights + all_bounds at {:.1e}: {:.3f} s, '
@@ -386,7 +432,9 @@ def main_path(vt, model, fam):
         if not is_finite(value):
             raise AssertionError('{} is not finite: {}'.format(name, value))
     require_launched(launches, ('transform_score_partials', 'lw_partials',
-                                'combine_partials'), 'eight-schools')
+                                'combine_partials', 'adagrad_step'),
+                     'eight-schools')
+    require_adagrad_steps(launches, [N_ITERS], 'eight-schools')
     return out, launches
 
 
@@ -425,7 +473,9 @@ def kernel_checks(model, fam, opt):
                     stats_p, 0, rtol)
         check_close('K3 + combine statistics', ops.lw_stats(lw_p), stats_p,
                     0, rtol)
+        check_k3_ragged_unaligned(lw_p, rtol)
         check_k1_ragged_unaligned('eight_schools_cp', args, tol, rtol)
+        check_infinite_log_weights(lw_p[:RAGGED_N], rtol)
 
     n, nc = N_BOUND, parts.shape[0]
     times = {
@@ -443,8 +493,91 @@ def kernel_checks(model, fam, opt):
             lambda: ops.combine_partials_plain(parts_p),
             nc * 6 * 4 + 5 * 4, nc * OPS_COMBINE),
     }
-    return {name: timed_row(name, *spec, err=errs[name], n=n)
+    rows = {name: timed_row(name, *spec, err=errs[name], n=n)
             for name, spec in times.items()}
+    n1 = EXP_N  # K3 at 1e6 samples: 489 chunks, all in one wave
+    lw1 = lw_p[:n1].contiguous()
+    row = timed_row('lw_partials', lambda: ops.lw_partials(lw1),
+                    lambda: ops.lw_partials_plain(lw1),
+                    n1 * 4 + ops.n_chunks(n1) * 6 * 4, n1 * OPS_K3,
+                    errs['lw_partials'], n1,
+                    label='lw_partials (n = {})'.format(n1))
+    log('K3 at n = {}: {}'.format(n1, json.dumps(dict(
+        name='lw_partials', n=n1, **row))))
+    return rows
+
+
+def check_k3_ragged_unaligned(lw, rtol):
+    """K3 against its plain version on the first `RAGGED_N` log-weights
+    (a ragged last chunk), and on them placed one value (4 bytes in float32,
+    8 in float64) off 16-byte alignment: the kernel's value-by-value
+    route.  Counts and maxima must agree exactly."""
+    from viabel_tpu_torch.ops import lw_stats as ops
+
+    buf = torch.empty(RAGGED_N + 1, dtype=lw.dtype, device=lw.device)
+    lw_u = buf[1:]
+    lw_u.copy_(lw[:RAGGED_N])
+    if lw_u.data_ptr() % 16 == 0:
+        raise AssertionError('the slice is 16-byte aligned')
+    for name, x in (('ragged n = {}'.format(RAGGED_N),
+                     lw[:RAGGED_N].contiguous()),
+                    ('ragged, lw {} B off 16-byte alignment'.format(
+                        lw.element_size()), lw_u)):
+        parts, parts_p = ops.lw_partials(x), ops.lw_partials_plain(x)
+        if not torch.equal(parts[:, :2], parts_p[:, :2]):
+            raise AssertionError('K3 counts or maxima differ, ' + name)
+        check_close('K3 partials, plain combine, {}'.format(name),
+                    ops.combine_partials_plain(parts),
+                    ops.combine_partials_plain(parts_p), 0, rtol)
+
+
+# the reference's statistics (viabel_tpu/bounds.py:124-156, jnp.mean and
+# jnp.std in IEEE arithmetic) where log-weights are infinite: mean_lw is
+# the IEEE mean, std_lw NaN
+INF_CASES = {'-inf first': ([0], '-'), '-inf last': ([-1], '-'),
+             '-inf at a chunk edge': ([2047, 2048], '-'),
+             '-inf filling a chunk': (slice(2048, 4096), '-'),
+             '+inf': ([5000], '+'), '-inf and +inf': ([7, 9000], '+-')}
+INF_MEAN_LW = {'-': -math.inf, '+': math.inf, '+-': math.nan}
+
+
+def check_infinite_log_weights(lw, rtol):
+    """K3 + the combine (and the combine alone, of the plain partials) on
+    the card against the plain versions and the reference's values, with a
+    log-weight of -inf or +inf: NaN and inf in the same fields, finite
+    fields to `rtol`, and mean_lw and std_lw as the constants above."""
+    from viabel_tpu_torch.ops import lw_stats as ops
+
+    for name, (where, sign) in INF_CASES.items():
+        x = lw.clone()
+        if sign == '+-':
+            x[where[0]], x[where[1]] = -math.inf, math.inf
+        else:
+            x[where] = math.inf if sign == '+' else -math.inf
+        want = ops.lw_stats(x.cpu())
+        for label, got in (('K3 + combine', ops.lw_stats(x)),
+                           ('combine', ops.combine_partials(
+                               ops.lw_partials_plain(x)))):
+            got = got.cpu()
+            same = torch.equal(torch.isnan(got), torch.isnan(want)) and \
+                torch.equal(torch.isinf(got), torch.isinf(want)) and \
+                torch.equal(got[torch.isinf(want)], want[torch.isinf(want)])
+            mean_lw, std_lw = float(got[3]), float(got[4])
+            ref = INF_MEAN_LW[sign]
+            if not (same and math.isnan(std_lw)
+                    and (math.isnan(ref) and math.isnan(mean_lw)
+                         or mean_lw == ref)):
+                raise AssertionError('{}, lw with {}: {} against the plain '
+                                     '{}'.format(label, name, got.tolist(),
+                                                 want.tolist()))
+            finite = torch.isfinite(want)
+            if finite.any():
+                check_close('{}, lw with {}: {} (finite fields)'.format(
+                    label, name, got.tolist()), got[finite], want[finite],
+                    0, rtol)
+            else:
+                log('  {}, lw with {}: {}, as the plain version'.format(
+                    label, name, got.tolist()))
 
 
 def timed_row(name, kernel, plain, nbytes, nops, err, n, library=None,
@@ -531,10 +664,120 @@ def wall(fn):
     return time.perf_counter() - t0, out
 
 
+def adagrad_inputs(vt, model, fam, objective, n_iters, dtype, seed):
+    """(wrapped objective, f32/f64 init at 0, presampled draws) of KLVI
+    (n_mc 100) or CHIVI (alpha 2, n_mc 500, with its log-norm rescaling,
+    the run_experiment protocol's sizes) on `model` with `fam`."""
+    from viabel_tpu_torch.optimizers import _wrap_objective
+
+    if objective == 'KLVI':
+        obj = vt.black_box_klvi(fam, model, N_MC, presampled=True)
+    else:
+        obj = vt.black_box_chivi(2, fam, model, 500, presampled=True)
+    g = torch.Generator(device='cuda').manual_seed(seed)
+    draws = obj.make_draws(g, n_iters, dtype)
+    init = torch.zeros(fam.var_param_dim, dtype=dtype, device='cuda')
+    return _wrap_objective(obj, None), init, draws
+
+
+def adagrad_run(inputs, n_iters, driver, keep_history=False):
+    from viabel_tpu_torch.optimizers import _adagrad_run
+
+    obj, init, draws = inputs
+    return _adagrad_run(obj, n_iters, WINDOW, 0.01, 0.1, 0.001, init, draws,
+                        keep_history=keep_history, driver=driver)
+
+
+def graph_against_eager(vt, model, fam):
+    """The graph run against the eager run of the same body on the card,
+    float64, 2000 iterations, KLVI and CHIVI on shared draws, with the
+    history kept: values, log-norms, params and the tail mean to 1e-10
+    relative."""
+    for objective in ('KLVI', 'CHIVI'):
+        inputs = adagrad_inputs(vt, model, fam, objective, N_OPT_ALONE,
+                                torch.float64, 5)
+        outs = {driver: adagrad_run(inputs, N_OPT_ALONE, driver, True)
+                for driver in ('graph', 'eager')}
+        for key, j in (('values', 0), ('log_norms', 1), ('params', 2),
+                       ('tail mean', 3)):
+            check_close('{} {} (graph vs eager, float64, {} iterations)'
+                        .format(objective, key, N_OPT_ALONE),
+                        outs['graph'][j], outs['eager'][j], 1e-300, 1e-10)
+
+
+def step_kernel_check(vt, model, fam):
+    """The step kernel against its plain version on the card, float64 and
+    float32: the same gradients, values and log-norms (those of the
+    objective along a KLVI or CHIVI run's first iterations) fed to two
+    copies of one state, 3 windows' worth of steps with the tail from
+    iteration 0 and the history kept; then its time beside the plain
+    version's, at the steady state of the ring.  Returns the timed row."""
+    from viabel_tpu_torch.ops import adagrad as aops
+
+    n_steps = 3 * WINDOW + 7
+    err = None
+    for dtype in (torch.float64, torch.float32):
+        tol = 1e-12 if dtype == torch.float64 else 2e-5
+        for objective in ('KLVI', 'CHIVI'):
+            obj, init, draws = adagrad_inputs(vt, model, fam, objective,
+                                              n_steps, dtype, 6)
+            lr = torch.linspace(0.02, 0.01, n_steps, dtype=dtype)
+            states = [aops.new_state(init, lr, WINDOW, 0.1, True)
+                      for _ in range(2)]
+            states = [s._replace(tail_start=0) for s in states]
+            for i in range(n_steps):
+                value, grad, log_norm = obj(states[1].param, draws[i])
+                args = (grad.to(dtype), value.to(dtype), log_norm.to(dtype))
+                aops.adagrad_step(states[0], *args)
+                aops.adagrad_step_plain(states[1], *args)
+            for key in ('param', 'values', 'log_norms', 'params',
+                        'tail_sum', 'grads', 'ring_log_norms', 'counter'):
+                e = check_close('adagrad_step {} ({}, {}, {} steps)'.format(
+                    key, objective, dtype, n_steps),
+                    getattr(states[0], key), getattr(states[1], key),
+                    tol * 1e-3, tol)
+                if dtype == torch.float32:
+                    err = max(err or 0.0, e)
+    # the time of one step at P = 20, window 10, the ring full, the history
+    # kept and the tail summed (the most a step does)
+    obj, init, draws = adagrad_inputs(vt, model, fam, 'KLVI', 1,
+                                      torch.float32, 7)
+    value, grad, log_norm = obj(init, draws[0])
+    n_time = 4096
+    state = aops.new_state(init, torch.full((n_time,), 0.01), WINDOW, 0.1,
+                           True)._replace(tail_start=0)
+    state.counter.fill_(WINDOW)
+    P = init.shape[0]
+    # bytes: grad, the ring (window rows and log-norms), param, the tail
+    # sum, lr, value, log-norm and the counter read; param, the new ring
+    # slot and log-norm, the history row, the tail sum, value, log-norm and
+    # the counter written.  Operations: an exp, 2 multiplies and an FMA a
+    # slot and coordinate, and ~6 a coordinate for the update
+    nbytes = 4 * (P * (WINDOW + 3) + WINDOW + 3) + 8 \
+        + 4 * (4 * P + 3) + 8
+    nops = P * (5 * WINDOW + 6)
+    _, plain_kernels, _ = profile_busy(
+        lambda: aops.adagrad_step_plain(state, grad, value, log_norm))
+    log('adagrad_step_plain: {} kernels a step on the card (the eager step '
+        'it replaces launched ~17, and decided slot, fill, rate and tail on '
+        'the host)'.format(plain_kernels))
+    return timed_row(
+        'adagrad_step', lambda: aops.adagrad_step(state, grad, value,
+                                                  log_norm),
+        lambda: aops.adagrad_step_plain(state, grad, value, log_norm),
+        nbytes, nops, err, 1, label='adagrad_step (P = {}, window {})'
+        .format(P, WINDOW))
+
+
 def time_breakdown(vt, model, fam, opt):
     """Phase 5: where the main path's time goes, at steady state (every
-    stage has run once already), and the card's busy share during the
-    optimizer from a profiler trace."""
+    stage has run once already): validated_vi again; the optimizer alone,
+    KLVI and CHIVI on eight-schools CP in float32, through the graph and
+    through the eager loop in turns (graph, eager, eager, graph); the bound
+    pass's draws and fused score; PSIS; the card's busy share and kernels
+    an iteration under the graph and under the eager loop (profiler); the
+    step kernel's check and time beside its plain version's.  Returns the
+    step kernel's timed row."""
     from viabel_tpu_torch.experiments import draw_and_score
     from viabel_tpu_torch.psis import _psislw_1d, _tail_len, weighted_moments
 
@@ -543,28 +786,37 @@ def time_breakdown(vt, model, fam, opt):
     t_vvi, _ = wall(lambda: vt.validated_vi(
         model, fam, init, N_ITERS, n_mc_samples=N_MC,
         n_bound_samples=N_BOUND, **kw))
-    obj = vt.black_box_klvi(fam, model, N_MC, presampled=True)
     g = torch.Generator(device='cuda').manual_seed(4)
-    t_opt, _ = wall(lambda: vt.adagrad_optimize(
-        N_OPT_ALONE, obj, init, generator=g, return_history=False, **kw))
     t_draw, z = wall(lambda: fam.base_sample(g, N_BOUND, torch.float32))
     t_score, (samples, lw, _) = wall(
         lambda: draw_and_score(model, fam, opt, z))
     tail_len = _tail_len(N_BOUND, 1.0)
     t_psis, _ = wall(lambda: weighted_moments(samples,
                                               _psislw_1d(lw, tail_len)[0]))
-    log('steady state: validated_vi {:.3f} s; adagrad {} iters {:.3f} s '
-        '({:.1f} it/s); t(40) draws {}x{} {:.4f} s; transform+score+stats '
-        '{:.4f} s; PSIS+weighted moments {:.4f} s'.format(
-            t_vvi, N_OPT_ALONE, t_opt, N_OPT_ALONE / t_opt, N_BOUND, fam.dim,
-            t_draw, t_score, t_psis))
-    n_prof = 500
-    busy_s, launches, t_prof = profile_busy(lambda: vt.adagrad_optimize(
-        n_prof, obj, init, generator=g, return_history=False, **kw))
-    log('optimizer under the profiler ({} iters): wall {:.3f} s, device '
-        'busy {:.4f} s ({:.1f} %), {:.0f} kernels an iteration'.format(
-            n_prof, t_prof, busy_s, 100 * busy_s / t_prof,
-            launches / n_prof))
+    log('steady state: validated_vi {:.3f} s; t(40) draws {}x{} {:.4f} s; '
+        'transform+score+stats {:.4f} s; PSIS+weighted moments {:.4f} s'
+        .format(t_vvi, N_BOUND, fam.dim, t_draw, t_score, t_psis))
+    for objective in ('KLVI', 'CHIVI'):
+        inputs = adagrad_inputs(vt, model, fam, objective, N_OPT_ALONE,
+                                torch.float32, 4)
+        rates = {'graph': [], 'eager': []}
+        for driver in ('graph', 'eager', 'eager', 'graph'):
+            t, _ = wall(lambda: adagrad_run(inputs, N_OPT_ALONE, driver))
+            rates[driver].append(N_OPT_ALONE / t)
+        log('adagrad alone, {} on eight-schools CP, {} iterations, float32, '
+            'in turns (graph, eager, eager, graph): graph {:.1f} / {:.1f} '
+            'it/s, eager {:.1f} / {:.1f} it/s'.format(
+                objective, N_OPT_ALONE, rates['graph'][0], rates['graph'][1],
+                rates['eager'][0], rates['eager'][1]))
+        n_prof = 500
+        for driver in ('graph', 'eager'):
+            busy_s, launches, t_prof = profile_busy(
+                lambda: adagrad_run(inputs, n_prof, driver))
+            log('  {} under the profiler ({}, {} iters): wall {:.3f} s, '
+                'device busy {:.4f} s ({:.1f} %), {:.1f} kernels an '
+                'iteration'.format(objective, driver, n_prof, t_prof, busy_s,
+                                   100 * busy_s / t_prof, launches / n_prof))
+    return step_kernel_check(vt, model, fam)
 
 
 def profile_busy(fn):
@@ -963,7 +1215,11 @@ def experiment_path(vt):
                                          name, method, psis['khat']))
     log('kernel launches on the run_experiment path: {}'.format(launches))
     require_launched(launches, ('transform_score_partials', 'lw_partials',
-                                'combine_partials'), 'run_experiment')
+                                'combine_partials', 'adagrad_step'),
+                     'run_experiment')
+    require_adagrad_steps(launches, [n for name in runs
+                                     for n in (EXP_ITERS[name],) * 2],
+                          'run_experiment')
 
     model, fam, init = experiment_models(vt)[0]
     chivi = vt.black_box_chivi(2, fam, model, 500, presampled=True)
@@ -1051,6 +1307,7 @@ def kernels_only(vt, model, fam):
     its plain version and its times at the paths' shapes) at stand-in fits,
     with no path driven and no result line.  For work on the kernels."""
     rows = kernel_checks(model, fam, moments_fit(model))
+    rows['adagrad_step'] = step_kernel_check(vt, model, fam)
     rmodel = regression_model()
     rfam = vt.mean_field_gaussian_variational_family(rmodel.dim)
     rows.update(regression_kernel_checks(vt, rmodel, rfam,
@@ -1089,7 +1346,8 @@ def main():
     out, launches = main_path(vt, model, fam)
     rows = kernel_checks(model, fam, out['opt_param'])
     small_reference_check(vt, model, fam)
-    time_breakdown(vt, model, fam, out['opt_param'])
+    graph_against_eager(vt, model, fam)
+    rows['adagrad_step'] = time_breakdown(vt, model, fam, out['opt_param'])
 
     rmodel, rfam, ia_param, r_launches = regression_path(vt)
     rows.update(regression_kernel_checks(vt, rmodel, rfam, ia_param))

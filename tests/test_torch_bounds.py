@@ -53,6 +53,57 @@ def test_log_weight_stats_match_two_pass(case, alpha):
         assert np.isfinite(got[k])
 
 
+# infinite log-weights (a draw outside a model's support, an overflow):
+# where the reference's jnp.mean / jnp.std give -inf, +inf or NaN
+INF_CASES = {'-inf first': ([0], '-'), '-inf last': ([-1], '-'),
+             '-inf at a chunk edge': ([ops.CHUNK - 1, ops.CHUNK], '-'),
+             '-inf filling a chunk': (slice(ops.CHUNK, 2 * ops.CHUNK), '-'),
+             '+inf': ([5000], '+'), '-inf and +inf': ([7, 9000], '+-')}
+
+
+def _assert_same_fields(got, want, rtol):
+    """Every field: NaN, inf of the same sign, or finite to `rtol`."""
+    for k in want:
+        g, w = float(got[k]), float(want[k])
+        if np.isnan(w) or np.isinf(w):
+            np.testing.assert_array_equal(g, w, err_msg=k)
+        else:
+            np.testing.assert_allclose(g, w, rtol=rtol, atol=0, err_msg=k)
+
+
+@pytest.mark.parametrize('dtype', [np.float64, np.float32])
+@pytest.mark.parametrize('case', list(INF_CASES))
+def test_infinite_log_weights_match_jax(case, dtype):
+    """`log_weight_stats` and `all_bounds` with a log-weight of -inf (at
+    the first and last sample, at a chunk edge, filling a whole chunk),
+    +inf, or both: the reference's fields, inf and NaN in the same places
+    (mean_lw the IEEE mean, std_lw NaN; with -inf, d2 and the W and moment
+    bounds inf and log_norm_bound -inf), finite fields to 1e-12 relative
+    in float64 and 2e-5 in float32."""
+    where, sign = INF_CASES[case]
+    lw = np.random.default_rng(2).normal(size=ops.CHUNK * 5 + 100)
+    if sign == '+-':
+        lw[where[0]], lw[where[1]] = -np.inf, np.inf
+    else:
+        lw[where] = np.inf if sign == '+' else -np.inf
+    lw = lw.astype(dtype)
+    rtol = 1e-12 if dtype == np.float64 else 2e-5
+    got = pt.log_weight_stats(torch.as_tensor(lw))
+    want = _log_weight_stats_arrays(jnp.asarray(lw), 2.0)
+    _assert_same_fields(got, want, rtol)
+    assert np.isnan(got['std_lw'])
+    np.testing.assert_array_equal(
+        got['mean_lw'], {'-': -np.inf, '+': np.inf, '+-': np.nan}[sign])
+    kw = dict(q_var=np.diag([2.0, 3.0]),
+              moment_bound_fn=lambda p: {2: 5.0, 4: 40.0}[p])
+    got = pt.all_bounds(torch.as_tensor(lw), **kw)
+    want = vt.all_bounds(jnp.asarray(lw), **kw)
+    assert sorted(got) == sorted(want)
+    _assert_same_fields(got, want, rtol)
+    if sign == '-':
+        assert got['d2'] == np.inf and got['log_norm_bound'] == -np.inf
+
+
 def test_partials_layout_and_float32_combine():
     """One row per CHUNK samples (the last ragged), and the float32 combine
     stays within 2e-5 of the float64 two-pass statistics: no one-pass

@@ -221,14 +221,17 @@ def _merge_equal(a, b):
 
 def _merge(a, b):
     """Chan's rule with the counts in the working type; an empty b (and an
-    empty pair) leaves a."""
+    empty pair) leaves a; where either mean is infinite the merged mean is
+    their sum."""
     na, mean_a, m2_a = a
     nb, mean_b, m2_b = b
     n = na + nb
     safe = torch.where(n > 0, n, torch.ones_like(n))
     delta = mean_b - mean_a
     keep = nb == 0
-    mean = torch.where(keep, mean_a, mean_a + delta * (nb / safe))
+    chan = torch.where(torch.isinf(mean_a) | torch.isinf(mean_b),
+                       mean_a + mean_b, mean_a + delta * (nb / safe))
+    mean = torch.where(keep, mean_a, chan)
     m2 = torch.where(keep, m2_a,
                      (m2_a + m2_b) + delta * delta * (na * nb / safe))
     return n, mean, m2
@@ -263,10 +266,12 @@ def _butterfly(group, width, equal):
 
 def _chunk_row_as_kernel(lw, alpha=2.0):
     """One partials row of a chunk of up to 2048 log-weights, in the
-    kernel's order: thread t holds items t, t + 256, ...; the max by
-    nan-propagating reduction; a full chunk takes two passes over a
-    thread's 8 values and equal-count merges, a ragged one Welford and the
-    general rule; 32 lanes, then 8 warps."""
+    order of K1 and K2: thread t holds items t, t + 256, ...; the max by
+    nan-propagating reduction (the e's taken against 0 where it is -inf);
+    two passes over a thread's valid values; a full chunk then takes
+    equal-count merges, a ragged one the general rule; 32 lanes, then 8
+    warps.  K3's threads hold other items (16-byte words); the arithmetic
+    is the same."""
     n, dtype = lw.shape[0], lw.dtype
     full = n == THREADS * ITEMS
     pad = torch.full((THREADS * ITEMS,), float('nan'), dtype=dtype)
@@ -275,25 +280,21 @@ def _chunk_row_as_kernel(lw, alpha=2.0):
     ok = (torch.arange(THREADS * ITEMS).reshape(ITEMS, THREADS).T < n)
     m = (torch.full((), float('nan'), dtype=dtype) if torch.isnan(lw).any()
          else lw.max())
-    e = torch.exp(items - m) ** alpha
+    m_e = torch.zeros_like(m) if m == -math.inf else m
+    e = torch.exp(items - m_e) ** alpha
     stats = []
     for v in (e, items):
         if full:
             mean = v.sum(dim=1) * (1.0 / ITEMS)
             m2 = ((v - mean[:, None]) ** 2).sum(dim=1)
             count = torch.full((THREADS,), float(ITEMS), dtype=dtype)
-        else:  # Welford over the valid items
-            count = torch.zeros(THREADS, dtype=dtype)
-            mean, m2 = torch.zeros_like(count), torch.zeros_like(count)
-            for k in range(ITEMS):
-                okk = ok[:, k]
-                c1 = count + 1
-                dv = v[:, k] - mean
-                mean1 = mean + dv / c1
-                m21 = m2 + dv * (v[:, k] - mean1)
-                count = torch.where(okk, c1, count)
-                mean = torch.where(okk, mean1, mean)
-                m2 = torch.where(okk, m21, m2)
+        else:  # the same over the valid items; a thread may hold none
+            count = ok.sum(dim=1).to(dtype)
+            total = torch.where(ok, v, torch.zeros_like(v)).sum(dim=1)
+            mean = torch.where(count > 0, total / count.clamp_min(1),
+                               torch.zeros_like(count))
+            m2 = torch.where(ok, (v - mean[:, None]) ** 2,
+                             torch.zeros_like(v)).sum(dim=1)
         group = tuple(t.reshape(WARPS, 32) for t in (count, mean, m2))
         warp = _butterfly(group, 32, full)
         stats.append(_butterfly(tuple(t[None, :] for t in warp), WARPS,
@@ -410,6 +411,34 @@ def test_combine_rows_as_kernel_propagate_nan(dtype):
     parts = _partials_rows('eight_schools', dtype)
     parts[700, 1:] = float('nan')
     assert torch.isnan(_combine_as_kernel(parts)).all()
+
+
+@pytest.mark.parametrize('dtype', DTYPES)
+@pytest.mark.parametrize('case', ['-inf', '-inf ragged', 'all -inf', '+inf',
+                                  'both'])
+def test_chunk_and_combine_with_infinite_values_match_plain(case, dtype):
+    """A chunk holding -inf (also in a ragged chunk, and filling it), +inf
+    or both: the butterfly's row and the combine beside an ordinary chunk
+    give the plain version's values, inf and NaN in the same places."""
+    lw = _chunk_lw('ragged' if case == '-inf ragged' else 'full', dtype)
+    if case == 'all -inf':
+        lw[:] = -math.inf
+    elif case == 'both':
+        lw[3], lw[400] = -math.inf, math.inf
+    else:
+        lw[THREADS + 5] = math.inf if case == '+inf' else -math.inf
+    got = _chunk_row_as_kernel(lw)
+    want = ops.lw_partials_plain(lw)[0]
+    other = ops.lw_partials_plain(_chunk_lw('full', dtype) + 1.0)
+    for g, w in ((got, want),
+                 (_combine_as_kernel(torch.cat([got[None], other])),
+                  ops.combine_partials_plain(torch.cat([want[None], other])))):
+        np.testing.assert_array_equal(torch.isnan(g).numpy(),
+                                      torch.isnan(w).numpy())
+        inf = torch.isinf(w)
+        np.testing.assert_array_equal(g[inf].numpy(), w[inf].numpy())
+        fin = torch.isfinite(w)
+        _close(g[fin], w[fin], 1e-30, 100 * STATS_RTOL[dtype])
 
 
 @pytest.mark.parametrize('dtype', DTYPES)

@@ -457,7 +457,8 @@ def test_philox_normal_tiles_match_plain(cuda, dtype, start, n, d):
 # --------------------------------------------------------------------------
 
 RAGGED_N = 300_007
-# more chunks than K3's grid of 4096 blocks, so that its blocks stride
+# more chunks than K3's grid (the blocks the card holds at once, 792 or
+# fewer), so that its blocks walk several chunks each
 N_ABOVE_K3_GRID = 4096 * 2048 + 2048 * 3 + 5
 
 
@@ -589,3 +590,105 @@ def test_regression_rows_in_k1_and_k2_match_plain(cuda, dtype, d, n_rows,
         _assert_stats_close(ops.combine_partials(parts),
                             ops.combine_partials_plain(parts_p),
                             REGRESSION_STATS_RTOL[dtype] * scale)
+
+
+# --------------------------------------------------------------------------
+# K3's routes: 16-byte words, a ragged last chunk, a misaligned lw
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
+@pytest.mark.parametrize('route', ['aligned', 'ragged', 'misaligned'])
+@pytest.mark.parametrize('n', [2048 * 5, RAGGED_N, 2_500_000])
+def test_lw_partials_routes_match_plain(cuda, dtype, route, n):
+    """K3 reads whole chunks of an aligned lw as 16-byte words and the
+    rest value by value; every route gives the plain version's rows (counts
+    and maxima exactly) and statistics."""
+    lw = _lw(n + (17 if route == 'ragged' else 0), dtype, cuda, seed=7)
+    if route == 'misaligned':  # one value off a multiple of 16 bytes
+        buf = torch.empty(lw.shape[0] + 1, dtype=dtype, device=cuda)
+        buf[1:] = lw
+        lw = buf[1:]
+        assert lw.data_ptr() % 16 != 0
+    parts = ops.lw_partials(lw)
+    parts_p = ops.lw_partials_plain(lw)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(parts[:, :2].cpu().numpy(),
+                                  parts_p[:, :2].cpu().numpy())
+    _assert_stats_close(ops.combine_partials_plain(parts),
+                        ops.combine_partials_plain(parts_p),
+                        TOL[dtype]['rtol'])
+
+
+# --------------------------------------------------------------------------
+# infinite log-weights: the reference's statistics (jnp.mean, jnp.std)
+# --------------------------------------------------------------------------
+
+INF_CASES = {'-inf first': ([0], '-'), '-inf last': ([-1], '-'),
+             '-inf at a chunk edge': ([2047, 2048], '-'),
+             '-inf filling a chunk': (slice(2048, 4096), '-'),
+             '+inf': ([5000], '+'), 'both': ([7, 9000], '+-')}
+INF_MEAN_LW = {'-': -np.inf, '+': np.inf, '+-': np.nan}
+
+
+def _with_infinities(lw, case):
+    where, sign = INF_CASES[case]
+    lw = lw.clone()
+    if sign == '+-':
+        lw[where[0]], lw[where[1]] = -np.inf, np.inf
+    else:
+        lw[where] = np.inf if sign == '+' else -np.inf
+    return lw
+
+
+def _assert_same_stats(got, want, rtol):
+    """NaN and inf in the same fields, the finite ones to `rtol`."""
+    got, want = got.cpu().double().numpy(), want.cpu().double().numpy()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    inf = np.isinf(want)
+    np.testing.assert_array_equal(got[inf], want[inf])
+    fin = np.isfinite(want)
+    np.testing.assert_allclose(got[fin], want[fin], rtol=rtol, atol=0)
+
+
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
+@pytest.mark.parametrize('case', list(INF_CASES))
+def test_infinite_log_weights_in_k3_and_the_combine(cuda, dtype, case):
+    """K3 + the combine, and the combine of the plain partials, equal the
+    plain statistics with an infinite log-weight, and give mean_lw as IEEE
+    arithmetic does and std_lw NaN."""
+    lw = _with_infinities(_lw(RAGGED_N, dtype, cuda, seed=3), case)
+    want = _plain_stats(lw.cpu())
+    for got in (ops.lw_stats(lw),
+                ops.combine_partials(ops.lw_partials_plain(lw))):
+        _assert_same_stats(got, want, TOL[dtype]['rtol'])
+        mean_lw, std_lw = float(got[3]), float(got[4])
+        np.testing.assert_array_equal(mean_lw, INF_MEAN_LW[INF_CASES[case][1]])
+        assert np.isnan(std_lw)
+
+
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
+@pytest.mark.parametrize('case', ['-inf first', '-inf last',
+                                  '-inf at a chunk edge',
+                                  '-inf filling a chunk'])
+def test_infinite_log_weights_from_k1(cuda, dtype, case):
+    """K1 with the funnel density scores -inf where sigma = exp(log_sigma)
+    is so small that (mu / sigma)^2 overflows (log_sigma = -80 in float32,
+    -700 in float64, mu = 1): lw and the statistics equal the plain
+    version's, mean_lw -inf and std_lw NaN."""
+    model = _ncp_or_funnel('funnel', dtype, cuda)[0]
+    n = RAGGED_N
+    g = torch.Generator(device=cuda).manual_seed(5)
+    z = torch.randn((n, 2), generator=g, dtype=dtype, device=cuda)
+    where = INF_CASES[case][0]
+    z[where, 0] = 1.0
+    z[where, 1] = -80.0 if dtype == torch.float32 else -700.0
+    zero = torch.zeros(2, dtype=dtype, device=cuda)
+    args = (z, zero, zero, model.kernel, model.kernel_data, None)
+    lw, stats = ops.transform_score_stats(*args)
+    lw_p, parts_p = ops.transform_score_partials_plain(*args)
+    assert torch.isneginf(lw_p[where]).all()
+    np.testing.assert_array_equal(torch.isneginf(lw).cpu().numpy(),
+                                  torch.isneginf(lw_p).cpu().numpy())
+    _assert_same_stats(stats, ops.combine_partials_plain(parts_p),
+                       TOL[dtype]['rtol'])
+    assert float(stats[3]) == -np.inf and np.isnan(float(stats[4]))

@@ -73,20 +73,28 @@ def test_adagrad_trajectory_matches(reference, keep_history):
 
 def test_window_accum_rescales_by_min_log_norm():
     """Slots are filled in order and rescaled by exp(min - log_norm), as
-    in the JAX package's ring buffer."""
+    in the JAX package's ring buffer: the port's step (its plain version,
+    on the device-side state) moves the parameter by
+    ``lr g / sqrt(eps + accum)`` with the JAX package's ``_window_accum``
+    denominator."""
     from viabel_tpu.optimizers import _WindowState
     from viabel_tpu.optimizers import _window_accum as j_accum
-    from viabel_tpu_torch.optimizers import _window_accum as t_accum
+    from viabel_tpu_torch.ops import adagrad as step_ops
     rng = np.random.default_rng(0)
-    grads = torch.zeros(3, 4, dtype=torch.float64)
-    lns = torch.zeros(3, dtype=torch.float64)
+    lr = torch.full((7,), 0.5, dtype=torch.float64)
+    t_state = step_ops.new_state(torch.zeros(4, dtype=torch.float64), lr, 3,
+                                 0.1, False)
     state = _WindowState(jnp.zeros((3, 4)), jnp.zeros(3))
+    param = np.zeros(4)
     for i in range(7):
         g, ln = rng.normal(size=4), rng.normal()
         state, want = j_accum(state, i, jnp.asarray(g), ln, 3)
-        got = t_accum(grads, lns, i, torch.as_tensor(g),
-                      torch.tensor(ln, dtype=torch.float64))
-        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-13)
+        param = param - 0.5 * g / np.sqrt(0.1 + np.asarray(want))
+        step_ops.adagrad_step_plain(
+            t_state, torch.as_tensor(g),
+            torch.tensor(0.0, dtype=torch.float64),
+            torch.tensor(ln, dtype=torch.float64))
+        np.testing.assert_allclose(t_state.param.numpy(), param, rtol=1e-13)
 
 
 def test_adagrad_optimize_public_path_on_cpu():

@@ -32,9 +32,10 @@
 //   [count, m, mean_e, M2_e, mean_lw, M2_lw]
 // with m the chunk max of lw, e = exp(lw - m)^alpha, mean/M2 the mean and
 // sum of squared deviations.  Within a thread two passes over its values
-// (Welford's update in a ragged chunk) and Chan's rule across threads and
-// chunks: the one-pass sum-of-squares form cancels in f32 and is never
-// used.
+// and Chan's rule across threads and chunks: the one-pass sum-of-squares
+// form cancels in f32 and is never used.  A log-weight of -inf or +inf
+// gives the reference's statistics (viabel_tpu/bounds.py:124-156): mean_lw
+// the IEEE mean, std_lw NaN, and the e's as exp(lw - max) gives them.
 
 #pragma once
 
@@ -49,7 +50,6 @@ constexpr int WARPS = THREADS / 32;
 constexpr int ITEMS = 8;
 constexpr int CHUNK = THREADS * ITEMS;
 constexpr int NPART = 6;
-constexpr int MAX_GRID = 4096;  // K3's grid
 constexpr int MAX_DIM = 32;  // the largest d a score kernel takes
 constexpr int SCHOOLS = 8;   // J of the eight-schools densities
 // the model data a score kernel stages beside mean and scale, in bytes;
@@ -118,18 +118,6 @@ struct Moments {
   T mean_e, m2_e, mean_lw, m2_lw;
 };
 
-template <typename T>
-__device__ __forceinline__ void welford(Moments<T>& s, T e, T lw) {
-  s.count += T(1);
-  T inv = T(1) / s.count;
-  T de = e - s.mean_e;
-  s.mean_e += de * inv;
-  s.m2_e += de * (e - s.mean_e);
-  T dl = lw - s.mean_lw;
-  s.mean_lw += dl * inv;
-  s.m2_lw += dl * (lw - s.mean_lw);
-}
-
 // ---------------------------------------------------------------------------
 // A chunk's statistics (K1, K2 and K3), by warp shuffles with two block
 // barriers a chunk, and the combine of the chunks' rows, by the same
@@ -139,6 +127,10 @@ __device__ __forceinline__ void welford(Moments<T>& s, T e, T lw) {
 // Chan's rule on whole Moments, counts in T: merge b into a.  A chunk's
 // counts are at most CHUNK, exact in float; the combine's reach n, and in
 // float the ratios then round like any other value (relative 6e-8).
+// Where either mean of lw is infinite (a log-weight of -inf or +inf), the
+// merged mean is their sum, the mean in IEEE arithmetic (-inf with -inf,
+// NaN with both signs), where Chan's form would give inf - inf = NaN; such
+// a group's M2 is NaN already, as jnp.std is.  The e's are finite or NaN.
 template <typename T>
 __device__ __forceinline__ void merge(Moments<T>& a, const Moments<T>& b) {
   if (b.count == T(0)) return;
@@ -147,13 +139,15 @@ __device__ __forceinline__ void merge(Moments<T>& a, const Moments<T>& b) {
   T de = b.mean_e - a.mean_e, dl = b.mean_lw - a.mean_lw;
   a.mean_e += de * wb;
   a.m2_e = (a.m2_e + b.m2_e) + de * de * wab;
-  a.mean_lw += dl * wb;
+  a.mean_lw = isinf(a.mean_lw) || isinf(b.mean_lw) ? a.mean_lw + b.mean_lw
+                                                   : a.mean_lw + dl * wb;
   a.m2_lw = (a.m2_lw + b.m2_lw) + dl * dl * wab;
   a.count = n;
 }
 
 // The same for two groups of one count c: n_b / n = 1 / 2 and
-// n_a n_b / n = c / 2, so no division; symmetric in a and b.
+// n_a n_b / n = c / 2, so no division; symmetric in a and b, and its mean
+// (a + b) / 2 is already the IEEE one with infinite means.
 template <typename T>
 __device__ __forceinline__ void merge_equal(Moments<T>& a,
                                             const Moments<T>& b) {
@@ -260,10 +254,15 @@ __device__ __forceinline__ Moments<T> block_merge(Moments<T> s,
 }
 
 // The chunk's partial row from the log-weights each thread holds in
-// registers.  FULL: every v[k] is valid, so all groups have equal counts
-// at every level, a thread's moments come from two passes over its
-// registers, and no merge divides; else v[k] is valid where ok[k] and the
-// general rules apply.
+// registers.  A thread's moments come from two passes over its registers
+// (sums, then squared deviations), so an infinite value gives the IEEE
+// mean and a NaN M2.  FULL: every v[k] is valid, so all groups have equal
+// counts at every level and no merge divides; else v[k] is valid where
+// ok[k] (a thread may hold none) and the general rules apply.  The e's of
+// a chunk whose max is -inf (every value -inf) are taken against 0, so
+// they are 0, as against any finite global max; the combine's r_b then
+// decides (0 against a finite max, NaN against -inf, as the reference's
+// exp(lw - max) is).
 template <typename T, bool FULL>
 __device__ __forceinline__ void chunk_partials_of(const T (&v)[ITEMS],
                                                   const bool (&ok)[ITEMS],
@@ -274,30 +273,32 @@ __device__ __forceinline__ void chunk_partials_of(const T (&v)[ITEMS],
   for (int k = 0; k < ITEMS; ++k)
     if (FULL || ok[k]) m = nan_max(m, v[k]);
   m = block_nan_max(m, sh);
+  const T m_e = m == T(-INFINITY) ? T(0) : m;
 
   Moments<T> s = {T(0), T(0), T(0), T(0), T(0)};
-  if (FULL) {
-    T e[ITEMS];
-    T sum_e = T(0), sum_lw = T(0);
+  T e[ITEMS];
+  T sum_e = T(0), sum_lw = T(0);
 #pragma unroll
-    for (int k = 0; k < ITEMS; ++k) {
-      e[k] = pow_alpha(v[k] - m, alpha);
+  for (int k = 0; k < ITEMS; ++k) {
+    if (FULL || ok[k]) {
+      e[k] = pow_alpha(v[k] - m_e, alpha);
       sum_e += e[k];
       sum_lw += v[k];
+      s.count += T(1);
     }
-    s.count = T(ITEMS);
-    s.mean_e = sum_e * T(1.0 / ITEMS);
-    s.mean_lw = sum_lw * T(1.0 / ITEMS);
+  }
+  if (FULL || s.count > T(0)) {
+    const T inv = FULL ? T(1.0 / ITEMS) : T(1) / s.count;
+    s.mean_e = sum_e * inv;
+    s.mean_lw = sum_lw * inv;
 #pragma unroll
     for (int k = 0; k < ITEMS; ++k) {
-      T de = e[k] - s.mean_e, dl = v[k] - s.mean_lw;
-      s.m2_e = d_fma(de, de, s.m2_e);
-      s.m2_lw = d_fma(dl, dl, s.m2_lw);
+      if (FULL || ok[k]) {
+        T de = e[k] - s.mean_e, dl = v[k] - s.mean_lw;
+        s.m2_e = d_fma(de, de, s.m2_e);
+        s.m2_lw = d_fma(dl, dl, s.m2_lw);
+      }
     }
-  } else {
-#pragma unroll
-    for (int k = 0; k < ITEMS; ++k)
-      if (ok[k]) welford(s, pow_alpha(v[k] - m, alpha), v[k]);
   }
   Moments<T> w = block_merge<T, FULL>(s, sh);
   if (threadIdx.x == 0) {
@@ -999,9 +1000,6 @@ __global__ void __launch_bounds__(
 }
 
 inline int64_t chunks_of(int64_t n) { return (n + CHUNK - 1) / CHUNK; }
-inline int grid_of(int64_t n_chunks) {
-  return int(n_chunks < MAX_GRID ? n_chunks : MAX_GRID);
-}
 
 // The blocks of `kernel` that the current device holds at once, at
 // `threads` a block and `smem` bytes of dynamic shared memory; 0 and the

@@ -34,8 +34,8 @@
 // once, half the logarithms, statistics by shuffles without divisions) and
 // then makes each load whole: z at d = 10 comes through a shared-memory
 // ring of cp.async copies, d = 2 reads one word a row, and the grid is what
-// the card holds at once (bound_pass.cuh).  K3 moves 4 bytes a sample, is
-// bound by bytes and shares K1's shuffle statistics.  The combine reads a
+// the card holds at once (bound_pass.cuh).  K3 moves 4 bytes a sample and
+// shares K1's shuffle statistics; its note below says what holds it.  The combine reads a
 // few KB: one block cannot approach its bytes bound, and its time is a
 // chain of dependent steps, so it takes shuffles and a single barrier a
 // step.
@@ -46,22 +46,59 @@ using namespace bound_pass;
 
 namespace {
 
-// K3: the same partials over an existing lw vector.
+// K3: the same partials over an existing lw vector.  It moves 4 (f32) or
+// 8 (f64) bytes a sample, so its bound is device memory's: 10 MB, 0.0030
+// ms at 2.5e6 f32 samples.  It takes three times that (PERF.md).  A block
+// of 256 threads takes a chunk with K1's shuffle statistics
+// (chunk_partials); a thread reads its 8 values as 16-byte words (2
+// float4 or 4 double2, neighbouring threads on neighbouring words); the
+// grid is the blocks the card holds at once, each walking chunks in a
+// stride.  A misaligned lw, and the ragged last chunk, are read value by
+// value in the same order.  This took the parent's time, and three other
+// designs were no faster (PERF.md): the next chunk's loads issued before
+// the current one's reduction, two chunks a block; a warp a chunk, 64
+// values a lane, no barrier; 128 threads a chunk, 16 values a thread,
+// every chunk of the paths resident at once.  So neither the loads' width
+// nor the waves nor the reductions' instruction count bounds it; left is
+// the latency of a chunk's chain of dependent steps (loads, max, barrier,
+// exponentials, merges, barrier), unconfirmed.
+template <typename T>
+constexpr int VEC = 16 / int(sizeof(T));  // values in a 16-byte word
+
+// the offset in its chunk of a thread's k-th value: word k / VEC of the
+// thread's words, which lie THREADS words apart, value k % VEC in it
+template <typename T>
+__device__ __forceinline__ int k3_offset(int k) {
+  return ((k / VEC<T>)*THREADS + int(threadIdx.x)) * VEC<T> + k % VEC<T>;
+}
+
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
     lw_partials_kernel(const T* __restrict__ lw, int64_t n, int64_t n_chunks,
-                       T alpha, T* __restrict__ partials) {
+                       int aligned, T alpha, T* __restrict__ partials) {
   __shared__ WarpStats<T> sh;
   for (int64_t c = blockIdx.x; c < n_chunks; c += gridDim.x) {
-    int64_t base = c * CHUNK;
+    const int64_t base = c * CHUNK;
     T v[ITEMS];
     bool ok[ITEMS];
+    if (aligned && base + CHUNK <= n) {
+      const Pack<T, VEC<T>>* w =
+          reinterpret_cast<const Pack<T, VEC<T>>*>(lw + base);
 #pragma unroll
-    for (int k = 0; k < ITEMS; ++k) {
-      int64_t i = base + int64_t(k) * THREADS + threadIdx.x;
-      ok[k] = i < n;
-      v[k] = ok[k] ? lw[i] : T(0);
+      for (int u = 0; u < ITEMS / VEC<T>; ++u) {
+        const Pack<T, VEC<T>> p = w[u * THREADS + threadIdx.x];
+#pragma unroll
+        for (int j = 0; j < VEC<T>; ++j) v[u * VEC<T> + j] = p.v[j];
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < ITEMS; ++k) {
+        const int64_t i = base + k3_offset<T>(k);
+        v[k] = i < n ? lw[i] : T(0);
+      }
     }
+#pragma unroll
+    for (int k = 0; k < ITEMS; ++k) ok[k] = base + k3_offset<T>(k) < n;
     chunk_partials(v, ok, base, n, alpha, sh, partials + c * NPART);
   }
 }
@@ -92,14 +129,22 @@ int launch_transform_score(const void* z, const void* mean,
                          partials, stream);
 }
 
+// K3's grid: a block a chunk, or the blocks the card holds at once.
 template <typename T>
 int launch_lw_partials(const void* lw, long long n, double alpha,
                        void* partials, void* stream) {
   if (n < 1) return int(cudaErrorInvalidValue);
-  int64_t nc = chunks_of(n);
+  cudaError_t err = cudaSuccess;
+  const int resident = resident_blocks(lw_partials_kernel<T>, THREADS, 0,
+                                       &err);
+  if (err != cudaSuccess) return int(err);
+  if (resident < 1) return int(cudaErrorLaunchOutOfResources);
+  const int64_t nc = chunks_of(n);
+  const int grid = int(nc < resident ? nc : resident);
+  const int aligned = reinterpret_cast<uintptr_t>(lw) % 16 == 0;
   lw_partials_kernel<T>
-      <<<grid_of(nc), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const T*>(lw), n, nc, T(alpha),
+      <<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const T*>(lw), n, nc, aligned, T(alpha),
           static_cast<T*>(partials));
   return int(cudaGetLastError());
 }

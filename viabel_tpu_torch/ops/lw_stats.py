@@ -24,7 +24,9 @@ Three CUDA kernels from ``csrc/lw_stats.cu`` (see the note at its top):
   std_lw]`` (population std, as ``jnp.std``).
 
 What bounds them on an H100 (PERF.md has the times): K3 moves 4 bytes a
-sample and is bound by bytes.  K1 spends several hundred instructions on
+sample and reads them as 16-byte words, a block a chunk, yet takes three
+times its bytes' bound, held by the latency of a chunk's dependent steps
+(its note in the .cu).  K1 spends several hundred instructions on
 the 4 d + 4 bytes of a sample, so the SMs' issue rate bounds it before
 device memory does, and on the regression density the ~2 N d operations
 of ``x beta`` do.  K1 therefore computes a launch's constants once, takes
@@ -36,8 +38,11 @@ and writes lw plus one 6-value row per 2048 samples.
 
 Partials row: ``[count, m, mean_e, M2_e, mean_lw, M2_lw]`` with m the
 chunk max, ``e = exp(lw - m)^alpha`` and M2 the sum of squared
-deviations.  The combine rescales chunk b by ``r_b = exp(m_b - M)^alpha``
-(mean by r_b, M2 by r_b^2) and merges by Chan's rule.  The JAX package's
+deviations.  Log-weights of -inf or +inf give the JAX package's
+statistics (``jnp.mean``, ``jnp.std``): mean_lw the IEEE mean, std_lw NaN,
+the e's as ``exp(lw - max)`` gives them.  The combine rescales chunk b by
+``r_b = exp(m_b - M)^alpha`` (mean by r_b, M2 by r_b^2) and merges by
+Chan's rule.  The JAX package's
 retired combine formed variances as ``s2/n - mean^2``, which cancels in
 f32; neither version here ever forms a raw second moment.
 
@@ -186,7 +191,11 @@ def _rows_partials(rows, alpha):
     count = torch.full((rows.shape[0],), rows.shape[1], dtype=rows.dtype,
                        device=rows.device)
     m = torch.max(rows, dim=1).values
-    e = torch.exp(rows - m[:, None]) ** alpha
+    # a row of -inf alone has weights 0 against any finite global max (its
+    # r_b is then 0); against a global max of -inf, r_b is NaN, as the
+    # reference's exp(-inf - -inf) is
+    m_e = torch.where(m == -math.inf, torch.zeros_like(m), m)
+    e = torch.exp(rows - m_e[:, None]) ** alpha
     mean_e = torch.mean(e, dim=1)
     mean_lw = torch.mean(rows, dim=1)
     m2_e = torch.sum((e - mean_e[:, None]) ** 2, dim=1)
@@ -209,12 +218,20 @@ def lw_partials_plain(lw, alpha=2.0):
 
 
 def _chan(a, b):
-    """Chan's rule on groups ``(count, mean, M2)``, counts in float64."""
+    """Chan's rule on groups ``(count, mean, M2)``, counts in float64.
+
+    Where either mean is infinite the merged mean is their sum, the mean
+    in IEEE arithmetic (-inf with -inf, NaN with both signs), where Chan's
+    ``mean_a + (mean_b - mean_a) nb / n`` would give NaN; such a group's
+    M2 is NaN already (an infinite value's deviation), as ``jnp.std`` is.
+    """
     na, mean_a, m2_a = a
     nb, mean_b, m2_b = b
     n = na + nb
     delta = mean_b - mean_a
-    mean = mean_a + delta * (nb / n).to(mean_a.dtype)
+    mean = torch.where(torch.isinf(mean_a) | torch.isinf(mean_b),
+                       mean_a + mean_b,
+                       mean_a + delta * (nb / n).to(mean_a.dtype))
     m2 = m2_a + m2_b + delta * delta * (na * nb / n).to(mean_a.dtype)
     return n, mean, m2
 

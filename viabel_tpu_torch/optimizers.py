@@ -2,12 +2,17 @@
 
 PyTorch port of viabel_tpu/optimizers.py (42-165, 201-230, 245-349 for
 adagrad; 352-487 and 721-962 for the iterate-averaging optimizers).
-PyTorch runs eagerly, so the JAX package's compiled `lax.scan` becomes a
-Python loop over iterations; the learning-rate schedule is a host float
-per iteration, and nothing in the loop waits for the device.  The chains
-of the IA optimizers are a batch dimension: one batched step an iteration
-through ``torch.func.vmap`` of the objective's gradient, as the JAX
-package vmaps its scan.  The scan-unroll knob (`resolve_unroll`) tuned a
+The JAX package compiles a whole adagrad run into one `lax.scan`.  Here
+its state lives on the device and each iteration is the objective's value
+and gradient followed by one hand-written step kernel
+(`ops.adagrad.adagrad_step`) that reads the iteration from a counter on
+the device; on the card a presampled objective's run is that body captured
+in a CUDA graph and replayed, so no iteration waits for the host.  The IA
+optimizers' chain step runs eagerly: a Python loop over iterations, the
+learning rate a host float, nothing waiting for the device.  Their chains
+are a batch dimension: one batched step an iteration through
+``torch.func.vmap`` of the objective's gradient, as the JAX package vmaps
+its scan.  The scan-unroll knob (`resolve_unroll`) tuned a
 TPU compiler and has no counterpart here.  The segmented, checkpointed and
 mesh-sharded chain runs come with a later slice.
 """
@@ -16,6 +21,9 @@ import torch
 from ._device import default_generator, resolve_device
 from .diagnostics import (compute_R_hat_adaptive, compute_R_hat_halfway,
                           stochastic_iterate_averaging)
+from .ops.adagrad import adagrad_step
+from .ops.adagrad import new_state as new_adagrad_state
+from .ops.adagrad import replay as adagrad_replay
 from .ops.gaussian_lw import philox_normal
 from .ops.philox import philox_seed
 
@@ -48,22 +56,6 @@ def learning_rate_schedule(i, n_iters, learning_rate, learning_rate_end=None):
     return float(learning_rate_end)
 
 
-def _window_accum(grads, log_norms, i, grad, log_norm):
-    """Insert (grad, log_norm) into the ring buffers IN PLACE and return
-    ``sum_valid (exp(min log_norm - log_norm) * grad)^2``, the
-    min-rescaled windowed adagrad denominator
-    (viabel_tpu/optimizers.py:142-165).  The first ``min(i + 1, window)``
-    slots are the filled ones."""
-    window = grads.shape[0]
-    slot = i % window
-    grads[slot] = grad
-    log_norms[slot] = log_norm
-    k = min(i + 1, window)
-    ln = log_norms[:k]
-    scale = torch.exp(torch.min(ln) - ln)
-    return torch.sum((scale[:, None] * grads[:k]) ** 2, dim=0)
-
-
 def _wrap_objective(objective_and_grad, has_log_norm):
     """Normalize to ``(value, grad, log_norm)``; objectives without a
     log-norm output get a zero one (viabel_tpu/optimizers.py:125-139)."""
@@ -81,47 +73,121 @@ def _wrap_objective(objective_and_grad, has_log_norm):
     return obj
 
 
+# iterations captured in one CUDA graph of the adagrad loop, chosen by
+# measurement (tools/graph_depth.py, PERF.md): at 2000 iterations one
+# iteration a graph ran fastest, since capturing an iteration costs the
+# host what running it eagerly does and a replay costs less than the card
+# spends on it; a one-iteration graph takes any remainder
+_GRAPH_ITERS = 1
+
+
+def _adagrad_iteration(obj, state, source):
+    """One adagrad iteration on the device-side `state`
+    (`ops.adagrad.AdagradState`): the objective's value and gradient at
+    ``state.param``, cast to its dtype, then the step kernel.  A presampled
+    objective takes the row of its ``(n_iters, n_mc, d)`` draws that the
+    device counter names; any other takes the generator `source`.  Nothing
+    in it waits for the device or decides on the host, so the same body
+    runs eagerly and under capture."""
+    xs = (source.index_select(0, state.counter)[0]
+          if getattr(obj, 'presampled', False) else source)
+    value, grad, log_norm = obj(state.param, xs)
+    dtype = state.param.dtype
+    adagrad_step(state, grad.to(dtype), value.to(dtype), log_norm.to(dtype))
+
+
+def _adagrad_eager(obj, state, source, iters):
+    """`iters` iterations of the body, one launch after another."""
+    for _ in range(iters):
+        _adagrad_iteration(obj, state, source)
+
+
+def _adagrad_graph(obj, state, source, iters, window):
+    """`iters` iterations of the body of a presampled objective on the
+    card: the first `window` eagerly on a side stream (real iterations,
+    which also warm up autograd's and the allocator's state and fill the
+    model's device data cache), then the body captured `_GRAPH_ITERS`
+    times in one CUDA graph and once in another, and those graphs replayed
+    until the run is done.  A failed capture raises."""
+    device = state.param.device
+    main = torch.cuda.current_stream(device)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(main)
+    warm = min(window, iters)
+    with torch.cuda.stream(side):
+        _adagrad_eager(obj, state, source, warm)
+    full, rest = divmod(iters - warm, _GRAPH_ITERS)
+    graphs = []
+    for count, steps in ((full, _GRAPH_ITERS), (rest, 1)):
+        if count:
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.stream(side):
+                graph.capture_begin()
+                try:
+                    _adagrad_eager(obj, state, source, steps)
+                finally:
+                    graph.capture_end()
+            graphs.append((graph, steps, count))
+    main.wait_stream(side)
+    for graph, steps, count in graphs:
+        for _ in range(count):
+            adagrad_replay(graph, steps)
+
+
+def _learning_rates(n_iters, learning_rate, learning_rate_end, dtype):
+    """The schedule of every iteration as a tensor of `dtype`: Python
+    floats rounded once to `dtype`, the value the eager step multiplied
+    by."""
+    return torch.tensor([learning_rate_schedule(i, n_iters, learning_rate,
+                                                learning_rate_end)
+                         for i in range(n_iters)],
+                        dtype=torch.float64).to(dtype)
+
+
 def _adagrad_run(obj, n_iters, window, learning_rate, epsilon,
-                 learning_rate_end, init_param, draws, keep_history=True):
+                 learning_rate_end, init_param, draws, keep_history=True,
+                 driver=None):
     """The whole adagrad run (viabel_tpu/optimizers.py:201-230, 241-303).
 
     `draws` is the ``(n_iters, n_mc, d)`` block of base draws for a
     presampled objective (row ``i`` feeds iteration ``i``), or a
-    `torch.Generator` for an objective that samples itself.  The
-    tail-quarter running sum is accumulated in both modes, so the averaged
-    parameter is the same whether or not the history is kept.
+    `torch.Generator` for an objective that samples itself.  The state of
+    the run lives on the device (`ops.adagrad.AdagradState`) and one body
+    (`_adagrad_iteration`) runs every iteration.  The driver is chosen by
+    the objective's type and the device: a presampled objective on the card
+    runs as a replayed CUDA graph (`_adagrad_graph`); an objective that
+    samples from a generator, and any run on the CPU (with the plain step),
+    run eagerly.  ``driver='eager'`` or ``'graph'`` names one instead (to
+    compare the two); the graph takes presampled objectives on the card
+    only.  The tail-quarter running sum is accumulated in both history
+    modes, so the averaged parameter is the same whether or not the
+    history is kept.
 
     Returns ``(values, log_norms, params, tail_mean)``; ``params`` is the
     ``(n_iters, P)`` iterate history, or None with ``keep_history=False``.
     """
-    param = init_param.detach().clone()
-    dtype, device = param.dtype, param.device
-    P = param.shape[0]
     presampled = getattr(obj, 'presampled', False)
-    grads = torch.zeros((window, P), dtype=dtype, device=device)
-    log_norm_buf = torch.zeros((window,), dtype=dtype, device=device)
-    values = torch.empty((n_iters,), dtype=dtype, device=device)
-    log_norms = torch.empty((n_iters,), dtype=dtype, device=device)
-    params = (torch.empty((n_iters, P), dtype=dtype, device=device)
-              if keep_history else None)
-    tail_start = 3 * n_iters // 4
-    tail_sum = torch.zeros((P,), dtype=dtype, device=device)
-    for i in range(n_iters):
-        value, grad, log_norm = obj(param, draws[i] if presampled else draws)
-        grad = grad.to(dtype)
-        log_norm = log_norm.to(dtype)
-        accum_sum = _window_accum(grads, log_norm_buf, i, grad, log_norm)
-        lr = learning_rate_schedule(i, n_iters, learning_rate,
-                                    learning_rate_end)
-        param = param - lr * grad / torch.sqrt(epsilon + accum_sum)
-        values[i] = value
-        log_norms[i] = log_norm
-        if keep_history:
-            params[i] = param
-        if i >= tail_start:
-            tail_sum += param
-    tail_mean = tail_sum / (n_iters - tail_start)
-    return values, log_norms, params, tail_mean
+    on_card = init_param.device.type == 'cuda'
+    if driver is None:
+        driver = 'graph' if presampled and on_card else 'eager'
+    if driver == 'graph' and not (presampled and on_card):
+        raise ValueError('the graph driver runs presampled objectives on the '
+                         'card only')
+    if driver not in ('eager', 'graph'):
+        raise ValueError('driver must be None, "eager" or "graph"')
+    state = new_adagrad_state(
+        init_param, _learning_rates(n_iters, learning_rate,
+                                    learning_rate_end, init_param.dtype),
+        window, epsilon, keep_history)
+    if driver == 'graph':
+        _adagrad_graph(obj, state, draws, n_iters, window)
+    else:
+        _adagrad_eager(obj, state, draws, n_iters)
+    if int(state.counter) != n_iters:
+        raise RuntimeError('the adagrad run stopped at iteration {} of {}'
+                           .format(int(state.counter), n_iters))
+    tail_mean = state.tail_sum / (n_iters - state.tail_start)
+    return state.values, state.log_norms, state.params, tail_mean
 
 
 def adagrad_optimize(n_iters, objective_and_grad, init_param, *,

@@ -2,9 +2,10 @@
 """Smoke run of the PyTorch port on one CUDA card: build, check, drive.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --kernels-only   # phases 1, 3, 7 and 11 and the
-                                           # step kernel's check and time,
-                                           # at stand-in fits; no result line
+    python3 chip_smoke.py --kernels-only   # phases 1, 3, 7, 11 and 12 and
+                                           # the step kernel's check and
+                                           # time, at stand-in fits; no
+                                           # result line
 
 Phases, each printed as it goes; any failure exits non-zero before the
 result line:
@@ -89,12 +90,45 @@ result line:
     f32 to the K1 tolerances but the funnel's lw rtol 3e-5, printed with
     its reason; K1 also ragged and off alignment), then K1's times with
     each density beside its plain version's and its bound, printed as
-    per-model rows.
+    per-model rows;
+12. the step kernel with one block a run against its plain version (K 1,
+    4, 16; P 4 and 5150; float64 to 1e-12, float32 to 2e-5 relative plus
+    8 ulps of the largest value), then its times at (K 16, P 4) and (K 1,
+    P 5150);
+
+13. the robust-regression multistart (benchmarks/khat_noise.py:183-207,
+    nothing cut), with every launch count set to 0 just before it and read
+    just after: ``validated_vi_multistart`` with 16 starts tiled from one
+    init, 5000 iterations and a 1e6-sample bound pass each, float32, for
+    mf-t(40) presampled KLVI (n_mc 100, lr 0.01), mf-t(40) CHIVI (n_mc
+    500, lr 0.01, from a single 5000-iteration KLVI fit with +3 on the
+    log-scales) and full-rank t(100) KLVI (n_mc 100, lr 0.1 -> 0.001); each
+    configuration's 16 khats, their mean against the JAX package's 16-seed
+    band (benchmarks/KHAT_NOISE.md; inside or outside one sd is printed, 3
+    sd or more fails), every khat and d2 finite; K1 (the regression
+    density), K3, the combine and the step kernel (one launch a batched
+    iteration, replayed after the window) must have launched; then each
+    configuration's batched optimizer alone (graph, 2000 iterations) and
+    the card's busy share over 500;
+14. the learning-rate sweep, counted the same way: ``validated_vi_sweep``
+    on robust regression, mf-t(40) KLVI, rates 0.003, 0.01, 0.03, 0.1 with
+    ends rate / 10, 5000 iterations, 1e5 bound samples; finite khats and
+    d2s; K1, the combine and the step kernel (one batched launch an
+    iteration, four learning-rate tables) must have launched;
+15. examples/large_d.py's default, counted the same way: ``validated_vi``
+    with a full-rank Gaussian at d = 100 (P = 5150) on the N = 400
+    conjugate regression, from the prior, n_mc 800, 10000 iterations, lr
+    0.05 -> 0.001, 1e6 bound samples; the example's own criterion (khat
+    < 0.7, |mean - truth| < 0.05) must hold; K3, the combine and the step
+    kernel at P = 5150 must have launched;
+16. the batched pipelines (each of phase 13's configurations, 4 runs at
+    their own rates) and a full-rank t ``validated_vi`` at a small size on
+    the card against the CPU, float64, on shared draws (1e-10 relative).
 
 The line before the last is a JSON object with one entry per kernel:
 route, source, the TPU kernel it replaces, launches on the paths of phases
-2, 6 and 10 (summed), the float32 max abs error, its time by events
-around the call (``ms``) and on the card (``device_ms``), the plain
+2, 6, 10, 13, 14 and 15 (summed), the float32 max abs error, its time by
+events around the call (``ms``) and on the card (``device_ms``), the plain
 version's time, its bound (the larger of bytes over 3.35 TB/s and
 operations over 67 TFLOP/s float32, H100 SXM data-sheet peaks; integer
 operations are counted at the float32 rate, and a division or a
@@ -103,7 +137,8 @@ instructions) and the library call's time (``torch.randn`` for
 ``philox_normal``; no single PyTorch call computes the others, so theirs
 is null).  The adagrad step's row replaces no Pallas kernel but the body
 of the JAX package's compiled scan; its launches are its executions,
-graph replays included.  The last line is
+graph replays included, and its ``instances`` are phase 12's timed rows
+(a batch of 16 runs, and P = 5150).  The last line is
 ``{"ok": true, "device": {...}}``.
 """
 import json
@@ -154,6 +189,19 @@ KHAT_BAND = {('eight_schools_ncp', 'KLVI'): (0.654, 0.029),
              ('eight_schools_ncp', 'CHIVI'): (0.568, 0.031),
              ('funnel', 'KLVI'): (0.80, 0.029),
              ('funnel', 'CHIVI'): (0.85, 0.026)}
+
+
+# the robust-regression seed-noise protocol of benchmarks/khat_noise.py:183-
+# 207 (16 starts from one init, the start axis the seed axis), nothing cut;
+# the JAX package's 16-seed khat means and sds (benchmarks/KHAT_NOISE.md)
+MS_STARTS, MS_ITERS, MS_BOUND = 16, 5000, 1_000_000
+MS_BAND = {'mf-t KLVI': (0.929, 0.028), 'mf-t CHIVI': (0.354, 0.027),
+           'full-rank t KLVI': (-0.685, 0.165)}
+# the learning-rate sweep on robust regression (mf-t(40) KLVI, ends rate /
+# 10, the API's default 1e5 bound samples)
+SWEEP_RATES, SWEEP_ITERS = (0.003, 0.01, 0.03, 0.1), 5000
+# examples/large_d.py's default: d = 100 (P = 5150), full-rank Gaussian
+LD_D, LD_ITERS, LD_MC, LD_BOUND = 100, 10000, 800, 1_000_000
 
 
 def ops_k2(d, n_rows):
@@ -1295,6 +1343,319 @@ def experiment_kernel_checks(vt, fits):
     log('K1 by model density: {}'.format(json.dumps(rows)))
 
 
+def card_generator(seed):
+    return torch.Generator(device='cuda').manual_seed(seed)
+
+
+def multistart_configs(vt, model):
+    """The three configurations of benchmarks/khat_noise.py:183-207 on
+    robust regression: (name, family, objective, init, lr, lr end); the
+    CHIVI init is filled in by the warm-start fit."""
+    fam = vt.mean_field_t_variational_family(2, 40)
+    tfam = vt.t_variational_family(2, 100)
+    return [
+        ('mf-t KLVI', fam, vt.black_box_klvi(fam, model, N_MC,
+                                             presampled=True),
+         torch.tensor([0.0, 0.0, 1.0, 1.0], device='cuda'), 0.01, None),
+        ('mf-t CHIVI', fam, vt.black_box_chivi(2, fam, model, 500,
+                                               presampled=True),
+         None, 0.01, None),
+        ('full-rank t KLVI', tfam, vt.black_box_klvi(tfam, model, N_MC,
+                                                     presampled=True),
+         tfam.init_param(device='cuda'), 0.1, 0.001)]
+
+
+def batched_rate(vt, obj, fam, init, lr, lr_end, n_iters=2000, seed=8):
+    """Batched iterations a second of the 16-start optimizer alone
+    (graph), and the card's busy share over 500 iterations."""
+    from viabel_tpu_torch.optimizers import _adagrad_runs, _learning_rates
+    from viabel_tpu_torch.pipeline import _stack_draws
+
+    g = card_generator(seed)
+    draws = _stack_draws([obj.make_draws(g, n_iters, torch.float32)
+                          for _ in range(MS_STARTS)])
+    lr_tables = _learning_rates(n_iters, lr, lr_end,
+                                torch.float32).repeat(MS_STARTS, 1)
+    inits = init.repeat(MS_STARTS, 1)
+
+    def run(n):
+        return _adagrad_runs(obj, None, n, WINDOW, lr_tables[:, :n]
+                             .contiguous(), 0.1, inits,
+                             {k: v[:, :n] for k, v in draws.items()}
+                             if isinstance(draws, dict) else draws[:, :n])
+
+    t, _ = wall(lambda: run(n_iters))
+    busy_s, kernels, t_prof = profile_busy(lambda: run(500))
+    return n_iters / t, busy_s / t_prof, kernels / 500
+
+
+def multistart_path(vt):
+    """Phase 13: the robust-regression multistart (path a), with the launch
+    counts it made: three 16-start validated_vi_multistart runs and the
+    single KLVI fit that warm-starts CHIVI."""
+    from viabel_tpu_torch.models import robust_regression_model
+
+    model = robust_regression_model()
+    configs = multistart_configs(vt, model)
+    runs = {}
+    reset_launches()
+    for name, fam, obj, init, lr, lr_end in configs:
+        if init is None:  # CHIVI warm-starts from a KLVI fit, +3 on scales
+            t_warm, (warm, _, _, _) = wall(lambda: vt.adagrad_optimize(
+                MS_ITERS, configs[0][2], configs[0][3], learning_rate=0.01,
+                return_history=False, generator=card_generator(0),
+                device='cuda'))
+            init = warm.clone()
+            init[2:] += 3.0
+            log('KLVI warm-start fit for CHIVI ({} iterations): {:.3f} s'
+                .format(MS_ITERS, t_warm))
+        t, out = wall(lambda: vt.validated_vi_multistart(
+            model, fam, init, MS_ITERS,
+            init_params=init.repeat(MS_STARTS, 1), objective_and_grad=obj,
+            n_bound_samples=MS_BOUND, learning_rate=lr,
+            learning_rate_end=lr_end, generator=card_generator(20260819),
+            device='cuda'))
+        runs[name] = (t, out, init)
+    launches = read_launches()
+    for name, fam, obj, _, lr, lr_end in configs:
+        t, out, init = runs[name]
+        khat = np.asarray(out['khat'])
+        d2 = np.asarray([b['d2'] for b in out['bounds']])
+        mean, sd = MS_BAND[name]
+        z = (khat.mean() - mean) / sd
+        inside = abs(khat.mean() - mean) <= sd
+        log('multistart {} ({} starts x {} iterations, n_bound {:.0e} each, '
+            'float32): {:.3f} s; khat mean {!r} sd {!r} (JAX 16-seed {} +- '
+            '{}: {:+.2f} sd, {} the accepted range), best {}, d2 median '
+            '{!r}'.format(name, MS_STARTS, MS_ITERS, MS_BOUND, t,
+                          float(khat.mean()), float(khat.std(ddof=1)), mean,
+                          sd, z, 'inside' if inside else 'OUTSIDE',
+                          out['best'], float(np.median(d2))))
+        log('  khats: {}'.format(json.dumps([float(k) for k in khat])))
+        if not (np.all(np.isfinite(khat)) and np.all(np.isfinite(d2))):
+            raise AssertionError('multistart {}: a khat or d2 is not finite'
+                                 .format(name))
+        if abs(z) >= 3:
+            raise AssertionError('multistart {}: the mean khat is {:+.2f} '
+                                 'sd from the JAX package\'s'.format(name, z))
+        rate, busy, kernels = batched_rate(vt, obj, fam, init, lr, lr_end)
+        log('  the 16-start optimizer alone (graph, 2000 iterations): '
+            '{:.1f} batched it/s = {:.0f} start-iterations/s; under the '
+            'profiler (500) the card {:.1f} % busy, {:.0f} kernels an '
+            'iteration'.format(rate, MS_STARTS * rate, 100 * busy, kernels))
+    log('kernel launches on the multistart path: {}'.format(launches))
+    require_launched(launches, ('transform_score_partials', 'lw_partials',
+                                'combine_partials', 'adagrad_step'),
+                     'multistart')
+    require_adagrad_steps(launches, [MS_ITERS] * 4, 'multistart')
+    return launches
+
+
+def sweep_path(vt):
+    """Phase 14: the learning-rate sweep (path b), with its launch counts."""
+    from viabel_tpu_torch.models import robust_regression_model
+
+    model = robust_regression_model()
+    fam = vt.mean_field_t_variational_family(2, 40)
+    init = torch.tensor([0.0, 0.0, 1.0, 1.0], device='cuda')
+    reset_launches()
+    t, out = wall(lambda: vt.validated_vi_sweep(
+        model, fam, init, SWEEP_ITERS, learning_rates=SWEEP_RATES,
+        learning_rate_ends=[r / 10 for r in SWEEP_RATES],
+        generator=card_generator(3), device='cuda'))
+    launches = read_launches()
+    log('sweep over rates {} (ends rate / 10, {} iterations, mf-t KLVI, '
+        'n_bound 1e5, float32): {:.3f} s; best rate {}'.format(
+            list(SWEEP_RATES), SWEEP_ITERS, t,
+            out['learning_rates'][out['best']]))
+    for k, rate in enumerate(out['learning_rates']):
+        b = out['bounds'][k]
+        log('  rate {}: khat {!r}, d2 {!r}, W2 {!r}, q mean {}'.format(
+            rate, out['khat'][k], float(b['d2']), float(b['W2']),
+            out['q_mean'][k].cpu().tolist()))
+        if not (is_finite(out['khat'][k]) and is_finite(float(b['d2']))):
+            raise AssertionError('sweep rate {}: khat or d2 is not finite'
+                                 .format(rate))
+    log('kernel launches on the sweep path: {}'.format(launches))
+    require_launched(launches, ('transform_score_partials',
+                                'combine_partials', 'adagrad_step'), 'sweep')
+    require_adagrad_steps(launches, [SWEEP_ITERS], 'sweep')
+    return launches
+
+
+def large_d_path(vt):
+    """Phase 15: examples/large_d.py's default (path c), with its launch
+    counts; the fit must meet the example's own criterion."""
+    from viabel_tpu_torch.models import (data_generator_linear,
+                                         linear_regression_model)
+
+    data = data_generator_linear(N=4 * LD_D, D=LD_D, alpha=1.0,
+                                 noise_variance=0.25, rho=0.5, seed=7)
+    model = linear_regression_model(data['X'], data['Y'], noise_scale=0.5,
+                                    prior_std=3.0)
+    fam = vt.full_rank_gaussian_variational_family(LD_D)
+    init = vt.init_from_moments(fam, np.zeros(LD_D),
+                                9.0 * np.eye(LD_D)).to('cuda', torch.float32)
+    reset_launches()
+    t, out = wall(lambda: vt.validated_vi(
+        model, fam, init, LD_ITERS, n_mc_samples=LD_MC,
+        n_bound_samples=LD_BOUND, learning_rate=0.05,
+        learning_rate_end=0.001, generator=card_generator(0),
+        device='cuda'))
+    launches = read_launches()
+    mean, cov = out['q_mean'].double().cpu().numpy(), \
+        out['q_cov'].double().cpu().numpy()
+    mean_err = float(np.linalg.norm(mean - model.true_mean))
+    cov_err = float(np.linalg.norm(cov - model.true_cov)
+                    / np.linalg.norm(model.true_cov))
+    log('large d (d = {}, P = {}, full-rank Gaussian, n_mc {}, {} '
+        'iterations, n_bound {:.0e}, float32): validated_vi {:.3f} s; khat '
+        '{!r}, d2 {!r}, |mean - truth| {!r}, rel cov err {!r} (the JAX '
+        'package at d = 100: khat +0.045, 0.0010); peak memory {:.2f} GB'
+        .format(LD_D, fam.var_param_dim, LD_MC, LD_ITERS, LD_BOUND, t,
+                out['khat'], float(out['bounds']['d2']), mean_err, cov_err,
+                torch.cuda.max_memory_allocated() / 1e9))
+    if not (out['khat'] < 0.7 and mean_err < 0.05):
+        raise AssertionError('the large-d fit is not certified (khat {}, '
+                             'mean error {})'.format(out['khat'], mean_err))
+    log('kernel launches on the large-d path: {}'.format(launches))
+    require_launched(launches, ('lw_partials', 'combine_partials',
+                                'adagrad_step'), 'large-d')
+    require_adagrad_steps(launches, [LD_ITERS], 'large-d')
+    return launches
+
+
+def batched_card_vs_cpu(vt):
+    """Phase 16: the batched pipelines and a full-rank validated_vi at a
+    small size on the card (kernels, the graph) against the CPU (plain
+    versions), float64, on shared draws made on the CPU; 1e-10 relative."""
+    from viabel_tpu_torch.models import robust_regression_model
+    from viabel_tpu_torch.optimizers import _learning_rates, _wrap_objective
+    from viabel_tpu_torch.pipeline import (_batch_core, _pipeline_core,
+                                           _stack_draws)
+    from viabel_tpu_torch.psis import _tail_len
+
+    model = robust_regression_model()
+    n_iters, n_bound, K = 200, 20000, 4
+    tail = _tail_len(n_bound, 1.0)
+    keys = ('opt_param', 'value_history', 'log_norm_history',
+            'log_weights', 'stats', 'khat', 'psis_mean', 'psis_cov')
+
+    def to(block, dev):
+        return ({k: v.to(dev) for k, v in block.items()}
+                if isinstance(block, dict) else block.to(dev))
+
+    worst = 0.0
+    for name, fam, obj, init, lr, lr_end in multistart_configs(vt, model):
+        g = torch.Generator().manual_seed(12)
+        init = (torch.tensor([-2.5, 1.5, 0.5, 0.5]) if init is None
+                else init.cpu()).double()
+        opt = _stack_draws([obj.make_draws(g, n_iters, torch.float64)
+                            for _ in range(K)])
+        bound = _stack_draws([fam.base_sample(g, n_bound, torch.float64)
+                              for _ in range(K)])
+        inits = init + 0.1 * torch.randn(K, init.shape[0], generator=g,
+                                         dtype=torch.float64)
+        rates = [_learning_rates(n_iters, lr * (k + 1), lr_end,
+                                 torch.float64) for k in range(K)]
+        outs = {dev: _batch_core(obj, None, fam, model, n_iters, WINDOW,
+                                 torch.stack(rates).to(dev), 0.1, 2.0, tail,
+                                 inits.to(dev), to(opt, dev), to(bound, dev))
+                for dev in ('cpu', 'cuda')}
+        for key in keys:
+            worst = max(worst, check_close(
+                'batch {} {} (cuda vs cpu)'.format(name, key),
+                outs['cuda'][key].cpu(), outs['cpu'][key], 1e-12, 1e-10))
+    fam = multistart_configs(vt, model)[2][1]
+    obj = vt.black_box_klvi(fam, model, 20, presampled=True)
+    g = torch.Generator().manual_seed(13)
+    opt = obj.make_draws(g, n_iters, torch.float64)
+    bound = fam.base_sample(g, n_bound, torch.float64)
+    outs = {dev: _pipeline_core(
+        _wrap_objective(obj, None), fam, model, n_iters, WINDOW, 0.1, 0.1,
+        0.001, 2.0, tail, fam.init_param(torch.float64, dev), to(opt, dev),
+        to(bound, dev)) for dev in ('cpu', 'cuda')}
+    for key in keys:
+        worst = max(worst, check_close(
+            'full-rank t validated_vi {} (cuda vs cpu)'.format(key),
+            outs['cuda'][key].cpu(), outs['cpu'][key], 1e-12, 1e-10))
+    log('batched pipelines (mf-t KLVI, mf-t CHIVI, full-rank t KLVI, {} '
+        'runs each at their own rate) and a full-rank validated_vi, card vs '
+        'CPU at {} iterations, n_bound {}, float64: max abs diff {:.3e}'
+        .format(K, n_iters, n_bound, worst))
+
+
+def batched_step_check(vt):
+    """Phase 12: the step kernel with one block a run against its plain
+    version on the card, K = 1, 4, 16 runs at P = 4 and 5150, each run its
+    own learning-rate table: float64 to 1e-12 relative, float32 to 2e-5
+    relative plus 8 float32 ulps of the largest value compared (the two
+    sum the ring in another order, and a parameter that walks near zero,
+    or a tail sum of O(1) terms that cancel, keeps the error of its O(1)
+    terms); then its times at (K 16, P 4), robust regression's 16 starts,
+    and at (K 1, P 5150), the large-d fit.  Returns the timed instances."""
+    from viabel_tpu_torch.ops import adagrad as aops
+    from viabel_tpu_torch.optimizers import _learning_rates
+
+    n_steps = 2 * WINDOW + 3
+    rng = np.random.default_rng(16)
+    err = 0.0
+    for dtype in (torch.float64, torch.float32):
+        tol = 1e-12 if dtype == torch.float64 else 2e-5
+        for K in (1, 4, 16):
+            for P in (4, 5150):
+                lr = torch.stack([
+                    _learning_rates(n_steps, a, a / 10, dtype)
+                    for a in np.geomspace(0.01, 0.1, K)]).cuda()
+                init = torch.as_tensor(rng.normal(size=(K, P)), dtype=dtype,
+                                       device='cuda')
+                states = [aops.new_state(init, lr, WINDOW, 0.1, True)
+                          for _ in range(2)]
+                for _ in range(n_steps):
+                    args = [torch.as_tensor(a, dtype=dtype, device='cuda')
+                            for a in (rng.normal(size=(K, P)),
+                                      rng.normal(size=K),
+                                      3.0 * rng.normal(size=K))]
+                    aops.adagrad_step(states[0], *args)
+                    aops.adagrad_step_plain(states[1], *args)
+                for key in ('param', 'values', 'log_norms', 'params',
+                            'tail_sum', 'grads', 'ring_log_norms',
+                            'counter'):
+                    want = getattr(states[1], key)
+                    atol = (tol * 1e-3 if dtype == torch.float64 else
+                            8 * torch.finfo(dtype).eps
+                            * float(want.abs().max()))
+                    e = check_close(
+                        'batched adagrad_step {} (K {}, P {}, {})'.format(
+                            key, K, P, dtype), getattr(states[0], key),
+                        want, atol, tol)
+                    if dtype == torch.float32:
+                        err = max(err, e)
+    rows = []
+    for K, P in ((MS_STARTS, 4), (1, 5150)):
+        n_time = 4096
+        state = aops.new_state(
+            torch.zeros(K, P, device='cuda'), torch.full((K, n_time), 0.01,
+                                                         device='cuda'),
+            WINDOW, 0.1, True)._replace(tail_start=0)
+        state.counter.fill_(WINDOW)
+        grad = torch.randn(K, P, device='cuda')
+        value, log_norm = torch.randn(K, device='cuda'), torch.zeros(
+            K, device='cuda')
+        # the bytes and operations of phase 5's step, K times over
+        nbytes = K * (4 * (P * (WINDOW + 3) + WINDOW + 3) + 8
+                      + 4 * (4 * P + 3) + 8)
+        nops = K * P * (5 * WINDOW + 6)
+        row = timed_row(
+            'adagrad_step', lambda: aops.adagrad_step(state, grad, value,
+                                                      log_norm),
+            lambda: aops.adagrad_step_plain(state, grad, value, log_norm),
+            nbytes, nops, err, 1, label='adagrad_step (K = {}, P = {}, '
+            'window {})'.format(K, P, WINDOW))
+        rows.append(dict(K=K, P=P, **row))
+    return rows
+
+
 def moments_fit(model):
     """A stand-in fit: the model's ground-truth mean and marginal scales."""
     return torch.as_tensor(np.concatenate([
@@ -1303,11 +1664,12 @@ def moments_fit(model):
 
 
 def kernels_only(vt, model, fam):
-    """``--kernels-only``: phases 3, 7 and 11 alone (every kernel against
+    """``--kernels-only``: phases 3, 7, 11 and 12 alone (every kernel against
     its plain version and its times at the paths' shapes) at stand-in fits,
     with no path driven and no result line.  For work on the kernels."""
     rows = kernel_checks(model, fam, moments_fit(model))
     rows['adagrad_step'] = step_kernel_check(vt, model, fam)
+    rows['adagrad_step']['instances'] = batched_step_check(vt)
     rmodel = regression_model()
     rfam = vt.mean_field_gaussian_variational_family(rmodel.dim)
     rows.update(regression_kernel_checks(vt, rmodel, rfam,
@@ -1357,17 +1719,25 @@ def main():
     fits, e_launches = experiment_path(vt)
     experiment_kernel_checks(vt, fits)
 
+    # timed before the long traces of phases 13-15, after which the
+    # profiler's traces come back without kernel records
+    rows['adagrad_step']['instances'] = batched_step_check(vt)
+    path_launches = [launches, r_launches, e_launches, multistart_path(vt),
+                     sweep_path(vt), large_d_path(vt)]
+    batched_card_vs_cpu(vt)
+
     kernels = [dict(name=name, route='cuda',
                     source='viabel_tpu_torch/csrc/' + SOURCE[name],
                     replaces=REPLACES[name],
-                    launches=(launches[name] + r_launches[name]
-                              + e_launches[name]),
+                    launches=sum(p[name] for p in path_launches),
                     max_abs_err=rows[name]['max_abs_err'],
                     ms=rows[name]['ms'], device_ms=rows[name]['device_ms'],
                     plain_ms=rows[name]['plain_ms'],
                     bound_ms=rows[name]['bound_ms'],
                     bound_by=rows[name]['bound_by'],
-                    library_ms=rows[name]['library_ms'])
+                    library_ms=rows[name]['library_ms'],
+                    **({'instances': rows[name]['instances']}
+                       if 'instances' in rows[name] else {}))
                for name in REPLACES]
     log(card_line())
     print(json.dumps({'kernels': kernels}))

@@ -192,6 +192,81 @@ def test_adagrad_run_drivers_are_chosen_by_objective_and_device():
                          None, init, source, driver='graph')
 
 
+@pytest.mark.parametrize('with_log_norms', [False, True])
+def test_batched_step_plain_matches_independent_jax_steps(jx,
+                                                          with_log_norms):
+    """K = 3 runs in one batched state, each with its own learning-rate
+    table (its own rate and end), against three independent runs of the
+    JAX package's `_make_adagrad_step` fed each run's gradients, values
+    and log-norms; 3 windows and a bit, so every run's ring wraps."""
+    _, jnp, _, jopt, _ = jx
+    n_iters, P, K = 40, 5, 3
+    n_steps = 3 * WINDOW + 4
+    rates = [(0.05, 0.005), (0.01, None), (0.2, 0.01)]
+    inputs = [_step_inputs(n_steps, with_log_norms, P, seed=10 + k)
+              for k in range(K)]
+    lr = torch.stack([_learning_rates(n_iters, a, b, torch.float64)
+                      for a, b in rates])
+    init = torch.as_tensor(np.random.default_rng(2).normal(size=(K, P)))
+    state = aops.new_state(init, lr, WINDOW, EPS, True)
+    assert state.counter.shape == (K,) and state.grads.shape == (K, WINDOW,
+                                                                 P)
+    for i in range(n_steps):
+        aops.adagrad_step_plain(
+            state, *[torch.as_tensor(np.stack([inp[j][i] for inp in inputs]))
+                     for j in range(3)])
+    for k, (a, b) in enumerate(rates):
+        grads, values, log_norms = inputs[k]
+
+        def fake_obj(param, i, grads=grads, values=values,
+                     log_norms=log_norms):
+            return values[i], jnp.asarray(grads)[i], log_norms[i]
+
+        jstep = jopt._make_adagrad_step(fake_obj, n_iters, WINDOW, a, EPS, b,
+                                        jnp.float64)
+        carry = (jnp.asarray(init[k].numpy()),
+                 jopt._WindowState(jnp.zeros((WINDOW, P)),
+                                   jnp.zeros(WINDOW)))
+        for i in range(n_steps):
+            carry, (value, log_norm, param) = jstep(carry, (i, i))
+            np.testing.assert_allclose(state.params[k, i].numpy(),
+                                       np.asarray(param), rtol=1e-12,
+                                       atol=1e-15)
+        np.testing.assert_allclose(state.param[k].numpy(),
+                                   np.asarray(carry[0]), rtol=1e-12)
+        np.testing.assert_allclose(state.grads[k].numpy(),
+                                   np.asarray(carry[1].grads), rtol=0)
+        np.testing.assert_array_equal(state.values[k, :n_steps].numpy(),
+                                      values)
+    assert state.counter.tolist() == [n_steps] * K
+
+
+@pytest.mark.parametrize('method', ['KLVI', 'CHIVI'])
+def test_batched_run_equals_independent_runs(jx, method):
+    """`_adagrad_runs` (vmapped objective, one batched step an iteration)
+    against K single `_adagrad_run`s on the same per-run draws and
+    schedules, 1e-12 relative."""
+    n_iters, n_mc, K = 23, 8, 3
+    _, tobj = _objectives(jx, method, n_mc)
+    draws = torch.as_tensor(np.random.default_rng(4).standard_t(
+        40, size=(K, n_iters, n_mc, 10)))
+    inits = torch.as_tensor(0.1 * np.random.default_rng(5).normal(
+        size=(K, 20)))
+    rates = [(0.05, 0.005), (0.02, None), (0.1, 0.01)]
+    lr = torch.stack([_learning_rates(n_iters, a, b, torch.float64)
+                      for a, b in rates])
+    values, log_norms, params, tail = optimizers._adagrad_runs(
+        tobj, None, n_iters, WINDOW, lr, EPS, inits, draws,
+        keep_history=True)
+    for k, (a, b) in enumerate(rates):
+        want = _adagrad_run(_wrap_objective(tobj, None), n_iters, WINDOW, a,
+                            EPS, b, inits[k], draws[k])
+        for got, w in zip((values[k], log_norms[k], params[k], tail[k]),
+                          want):
+            np.testing.assert_allclose(got.numpy(), w.numpy(), rtol=1e-12,
+                                       atol=1e-14)
+
+
 # --------------------------------------------------------------------------
 # on the card
 # --------------------------------------------------------------------------
@@ -255,6 +330,63 @@ def test_graph_run_matches_eager_run(cuda, method, depth, monkeypatch):
         assert aops.launches['adagrad_step'] == n_iters
         assert aops.replayed['adagrad_step'] == (
             n_iters - WINDOW if driver == 'graph' else 0)
+    for got, want in zip(outs['graph'], outs['eager']):
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=1e-10, atol=1e-300)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('K,P', [(1, 4), (4, 4), (16, 4), (1, 5150),
+                                 (4, 5150), (16, 5150)])
+def test_batched_step_kernel_matches_plain(cuda, K, P):
+    """The step kernel with one block a run against its plain version,
+    float64, 1e-12 relative: K runs, each with its own learning-rate
+    table, gradients, values and log-norms, past the ring's wrap."""
+    n_steps = 2 * WINDOW + 3
+    rng = np.random.default_rng(K * P)
+    lr = torch.stack([_learning_rates(n_steps, a, a / 10, torch.float64)
+                      for a in np.geomspace(0.01, 0.1, K)]).to(cuda)
+    init = torch.as_tensor(rng.normal(size=(K, P)), device=cuda)
+    states = [aops.new_state(init, lr, WINDOW, EPS, True) for _ in range(2)]
+    for i in range(n_steps):
+        args = [torch.as_tensor(a, device=cuda) for a in (
+            rng.normal(size=(K, P)), rng.normal(size=K),
+            3.0 * rng.normal(size=K))]
+        aops.adagrad_step(states[0], *args)
+        aops.adagrad_step_plain(states[1], *args)
+    for key in ('param', 'values', 'log_norms', 'params', 'tail_sum',
+                'grads', 'ring_log_norms', 'counter'):
+        np.testing.assert_allclose(
+            getattr(states[0], key).cpu().double().numpy(),
+            getattr(states[1], key).cpu().double().numpy(), rtol=1e-12,
+            atol=1e-15, err_msg=key)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('method', ['KLVI', 'CHIVI'])
+def test_batched_graph_run_matches_eager_run(cuda, method):
+    """The batched run replayed from a graph against the eager loop of the
+    same body, float64, 1e-10 relative; the step launches once an
+    iteration."""
+    n_iters, n_mc, K = WINDOW + 12, 20, 4
+    fam = pt.mean_field_t_variational_family(10, 40)
+    if method == 'KLVI':
+        obj = pt.black_box_klvi(fam, tcp(), n_mc, presampled=True)
+    else:
+        obj = pt.black_box_chivi(2, fam, tcp(), n_mc, presampled=True)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    draws = obj.make_draws(g, K * n_iters, torch.float64).reshape(
+        K, n_iters, n_mc, 10)
+    inits = 0.1 * torch.randn(K, 20, dtype=torch.float64, device=cuda,
+                              generator=g)
+    lr = _learning_rates(n_iters, LR, LR_END, torch.float64).repeat(K, 1)
+    outs = {}
+    for driver in ('graph', 'eager'):
+        aops.reset_launches()
+        outs[driver] = optimizers._adagrad_runs(
+            obj, None, n_iters, WINDOW, lr, EPS, inits, draws,
+            keep_history=True, driver=driver)
+        assert aops.launches['adagrad_step'] == n_iters
     for got, want in zip(outs['graph'], outs['eager']):
         np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                    rtol=1e-10, atol=1e-300)

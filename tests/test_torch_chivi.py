@@ -154,6 +154,13 @@ def test_init_from_moments_matches_jax(kind):
 
 
 def test_init_from_moments_refuses_full_rank_families():
+    """A family that is not mean-field gets the full-rank layout ``[mean,
+    log diag L, strict lower L]`` of cov's Cholesky factor, as the JAX
+    package's does (the port refused it before it had the full-rank
+    families)."""
     full_rank = pt.VariationalFamily(*[None] * 5, 6, 2, 'full_rank_gaussian')
-    with pytest.raises(NotImplementedError, match='A.3'):
-        pt.init_from_moments(full_rank, np.zeros(2), np.eye(2))
+    jfull = vt.full_rank_gaussian_variational_family(2)
+    cov = np.array([[2.0, 0.6], [0.6, 1.0]])
+    got = pt.init_from_moments(full_rank, np.ones(2), cov)
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(vt.init_from_moments(jfull, np.ones(2), cov)))

@@ -100,10 +100,16 @@ def test_sampler_shapes_dtype_and_determinism():
 
 @pytest.mark.parametrize('df', [4.5, 201, 0])
 def test_unported_df_raises(df):
-    """Non-integer df and df > 200 used the JAX package's rejection
-    samplers, which are not ported yet: refuse, never approximate."""
-    g = torch.Generator()
-    with pytest.raises(NotImplementedError):
-        td.student_t_sample(g, df, (10,))
-    with pytest.raises(NotImplementedError):
-        td.chi2_sample(g, df, (10,))
+    """Non-integer df and df > 200 take the gamma sampler (the JAX
+    package's rejection-sampler fallback), driven by the generator alone;
+    a df that is not positive raises."""
+    if df <= 0:
+        for sampler in (td.student_t_sample, td.chi2_sample):
+            with pytest.raises(ValueError, match='positive'):
+                sampler(torch.Generator(), df, (10,))
+        return
+    for sampler in (td.student_t_sample, td.chi2_sample):
+        x = sampler(torch.Generator().manual_seed(3), df, (10,))
+        assert x.dtype == torch.float32 and torch.isfinite(x).all()
+        assert torch.equal(x, sampler(torch.Generator().manual_seed(3), df,
+                                      (10,)))

@@ -64,22 +64,29 @@ def child(root, build_only):
     return 0
 
 
-def main(roots):
-    if '--child' in roots or '--build' in roots:
-        return child(roots[-1], '--build' in roots)
-    me = os.path.abspath(__file__)
+def turns(script, roots):
+    """Print the card's name and power limit, run ``script --build ROOT``
+    for every ROOT at once, then ``script --child ROOT`` in the order given
+    and again in reverse, each in a process of its own."""
     print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
-    builds = [subprocess.Popen([sys.executable, me, '--build', r])
+    builds = [subprocess.Popen([sys.executable, script, '--build', r])
               for r in roots]
     if any(p.wait() for p in builds):
         return 1
     for root in list(roots) + list(reversed(roots)):
-        rc = subprocess.run([sys.executable, me, '--child', root]).returncode
+        rc = subprocess.run([sys.executable, script, '--child',
+                             root]).returncode
         if rc:
             return rc
     return 0
+
+
+def main(roots):
+    if '--child' in roots or '--build' in roots:
+        return child(roots[-1], '--build' in roots)
+    return turns(os.path.abspath(__file__), roots)
 
 
 if __name__ == '__main__':

@@ -4,18 +4,22 @@ The PyTorch port of the JAX package `viabel_tpu`, for an NVIDIA H100.  It
 keeps the JAX package's module names, so each function has a counterpart
 of the same name there, and it imports neither JAX nor `viabel_tpu`.
 
-It carries three slices: the eight-schools validated-VI pipeline (the
+It carries four slices: the eight-schools validated-VI pipeline (the
 mean-field families, presampled KLVI, windowed adagrad, the bounds, PSIS,
 the fused pipeline `validated_vi`); R-hat-gated iterate averaging on
 Bayesian regression (`diagnostics`, the RMSProp/Adam IA optimizers, the
-regression models, `improve_with_psis`); and the KLVI-against-CHIVI
+regression models, `improve_with_psis`); the KLVI-against-CHIVI
 harness `run_experiment` (`black_box_chivi`, `init_from_moments`, the
-non-centred eight-schools and funnel models).  The bound pass runs on
-hand-written CUDA kernels: K1, K3 and the combine in ``csrc/lw_stats.cu``
-(`ops.lw_stats`), and K2, which draws a Gaussian q's samples in-kernel
-from a Philox stream, with ``philox_normal`` in ``csrc/gaussian_lw.cu``
-(`ops.gaussian_lw`).  K1 and K2 score every model density the TPU
-kernels had: eight-schools CP and NCP, the funnel and regression.
+non-centred eight-schools and funnel models); and the batched pipelines
+`validated_vi_multistart` and `validated_vi_sweep`, the full-rank families
+with the Cholesky densities, and the rest of the objectives.  The bound
+pass runs on hand-written CUDA kernels: K1, K3 and the combine in
+``csrc/lw_stats.cu`` (`ops.lw_stats`), and K2, which draws a Gaussian q's
+samples in-kernel from a Philox stream, with ``philox_normal`` in
+``csrc/gaussian_lw.cu`` (`ops.gaussian_lw`).  K1 and K2 score every model density the TPU
+kernels had: eight-schools CP and NCP, the funnel and regression.  The
+windowed adagrad's step is one hand-written kernel for a run or a batch of
+runs (``csrc/adagrad.cu``, `ops.adagrad`).
 
 Entry points run on the CUDA card unless the caller passes
 ``device='cpu'``; without a card and without that argument they raise.
@@ -32,15 +36,21 @@ from .diagnostics import (compute_posterior_moments, compute_R_hat,
 from .experiments import (check_accuracy, check_approx_accuracy,
                           get_samples_and_log_weights, improve_with_psis,
                           print_bounds, psis_correction, run_experiment)
+from .distributions import multivariate_t_logpdf
 from .families import (NoClosedFormMomentError, VariationalFamily,
+                       full_rank_gaussian_variational_family,
                        init_from_moments,
                        mean_field_gaussian_variational_family,
-                       mean_field_t_variational_family)
-from .objectives import black_box_chivi, black_box_klvi
+                       mean_field_t_variational_family, t_variational_family)
+from .objectives import (black_box_chivi, black_box_chivi_neff,
+                         black_box_klvi, black_box_klvi_pd,
+                         black_box_klvi_pd2, perturbed_black_box_vi,
+                         vectorize_log_density)
 from .optimizers import (adagrad_optimize, adam_IA_optimize,
                          adam_IA_optimize_with_rhat, learning_rate_schedule,
                          rmsprop_IA_optimize, rmsprop_IA_optimize_with_rhat)
-from .pipeline import DivergedRunWarning, validated_vi
+from .pipeline import (DivergedRunWarning, validated_vi,
+                       validated_vi_multistart, validated_vi_sweep)
 from .psis import psislw, weighted_moments
 
 __version__ = '0.1.0'
@@ -50,8 +60,12 @@ __all__ = [
     'log_weight_stats', 'family_moment_bounds',
     'VariationalFamily', 'NoClosedFormMomentError',
     'mean_field_gaussian_variational_family',
-    'mean_field_t_variational_family', 'init_from_moments',
-    'black_box_klvi', 'black_box_chivi',
+    'mean_field_t_variational_family',
+    'full_rank_gaussian_variational_family', 't_variational_family',
+    'init_from_moments', 'multivariate_t_logpdf',
+    'black_box_klvi', 'black_box_klvi_pd', 'black_box_klvi_pd2',
+    'black_box_chivi', 'black_box_chivi_neff', 'perturbed_black_box_vi',
+    'vectorize_log_density',
     'learning_rate_schedule', 'adagrad_optimize',
     'rmsprop_IA_optimize_with_rhat', 'adam_IA_optimize_with_rhat',
     'rmsprop_IA_optimize', 'adam_IA_optimize',
@@ -62,6 +76,7 @@ __all__ = [
     'check_accuracy', 'check_approx_accuracy', 'print_bounds',
     'run_experiment',
     'psislw', 'weighted_moments',
-    'validated_vi', 'DivergedRunWarning',
+    'validated_vi', 'validated_vi_multistart', 'validated_vi_sweep',
+    'DivergedRunWarning',
     'resolve_device', 'fp32_matmul_policy',
 ]

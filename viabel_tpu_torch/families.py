@@ -1,14 +1,15 @@
 """Variational families as bundles of plain tensor functions.
 
-PyTorch port of viabel_tpu/families.py:48-245 (the mean-field families).
-Variational parameters are flat vectors ``[location (d), log scale (d)]``.
-Sampling takes an explicit `torch.Generator` in place of a JAX key and
-draws on the generator's device; ``sample(g, p, n) == transform(p,
-base_sample(g, n))`` holds exactly, which is what presampled objectives and
-the tests' shared draws rely on.
-
-`init_from_moments` takes the mean-field families; the full-rank families
-come with a later slice.
+PyTorch port of viabel_tpu/families.py.  The mean-field families'
+parameters are flat vectors ``[location (d), log scale (d)]``; the
+full-rank families' are ``[mu (d), log diag L (d), strict lower L]`` with
+the strict lower triangle in ``np.tril_indices(d, k=-1)`` (row-major)
+order, so a JAX parameter vector means the same here.  Sampling takes an
+explicit `torch.Generator` in place of a JAX key and draws on the
+generator's device; ``sample(g, p, n) == transform(p, base_sample(g, n))``
+holds exactly, which is what presampled objectives and the tests' shared
+draws rely on.  The full-rank Student-t family's base draws are a dict
+``{'z': (n, d), 'chi2': (n,)}``.
 """
 import math
 from functools import lru_cache
@@ -17,14 +18,17 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-from .distributions import (diag_normal_logpdf, diag_student_t_logpdf,
-                            student_t_sample)
+from .distributions import (chi2_sample, diag_normal_logpdf,
+                            diag_student_t_logpdf, mvn_logpdf_chol,
+                            mvt_logpdf_chol, student_t_sample)
 
 __all__ = [
     'VariationalFamily',
     'NoClosedFormMomentError',
     'mean_field_gaussian_variational_family',
     'mean_field_t_variational_family',
+    'full_rank_gaussian_variational_family',
+    't_variational_family',
     'init_from_moments',
 ]
 
@@ -190,22 +194,157 @@ def mean_field_t_variational_family(dim, df):
                              base_sample, transform, df)
 
 
+@lru_cache(maxsize=None)
+def _chol_gather_index(dim, device):
+    """For each entry of the row-major (d, d) factor, the position in
+    ``[strict lower L, diag L, 0]`` that holds it: ``torch.tril_indices(d,
+    d, -1)`` walks the strict lower triangle in the order of
+    ``np.tril_indices(d, k=-1)``."""
+    n_off = dim * (dim - 1) // 2
+    index = torch.full((dim, dim), n_off + dim, dtype=torch.int64)
+    rows, cols = torch.tril_indices(dim, dim, -1)
+    index[rows, cols] = torch.arange(n_off)
+    index[torch.arange(dim), torch.arange(dim)] = n_off + torch.arange(dim)
+    return index.reshape(-1).to(device)
+
+
+def _unpack_chol(var_param, dim):
+    """Unpack ``[mu, log diag L, strict lower L]`` into (mu, L)
+    (viabel_tpu/families.py:248-258).  L is one gather from the parameter
+    vector, so it builds alike under autograd, `torch.func.vmap` and a
+    CUDA graph capture."""
+    mu = var_param[:dim]
+    entries = torch.cat([var_param[2 * dim:],
+                         torch.exp(var_param[dim:2 * dim]),
+                         torch.zeros_like(var_param[:1])])
+    index = _chol_gather_index(dim, var_param.device)
+    return mu, entries[index].reshape(dim, dim)
+
+
+def _chol_param_dim(dim):
+    return dim * (dim + 3) // 2
+
+
+def _full_rank_moment(L, p, c2=1.0, c4=1.0):
+    """``c2 tr(Sigma)`` (p = 2) or ``c4 (2 tr(Sigma^2) + tr(Sigma)^2)``
+    (p = 4) for ``Sigma = L L^T``."""
+    tr_sigma = torch.sum(L ** 2)
+    if p == 2:
+        return c2 * tr_sigma
+    tr_sigma2 = torch.sum((L.T @ L) ** 2)  # tr(Sigma^2) = ||L^T L||_F^2
+    return c4 * (2 * tr_sigma2 + tr_sigma ** 2)
+
+
+@_memoized_constructor
+def full_rank_gaussian_variational_family(dim):
+    """Full-rank Gaussian with the Cholesky parameterization
+    (viabel_tpu/families.py:265-314): ``x = mu + z L^T``."""
+
+    def base_sample(generator, n_samples, dtype=torch.float32):
+        return torch.randn((n_samples, dim), generator=generator,
+                           dtype=dtype, device=generator.device)
+
+    def transform(var_param, z):
+        mu, L = _unpack_chol(var_param, dim)
+        return mu + z @ L.T
+
+    def sample(generator, var_param, n_samples):
+        return transform(var_param,
+                         base_sample(generator, n_samples, var_param.dtype))
+
+    def entropy(var_param):
+        return (torch.sum(var_param[dim:2 * dim])
+                + 0.5 * dim * (1.0 + _LOG_2PI))
+
+    def log_prob(var_param, x):
+        mu, L = _unpack_chol(var_param, dim)
+        return mvn_logpdf_chol(x, mu, L)
+
+    def mean_and_cov(var_param):
+        mu, L = _unpack_chol(var_param, dim)
+        return mu, L @ L.T
+
+    def pth_moment(var_param, p):
+        if p not in (2, 4):
+            raise ValueError('only p = 2 or 4 supported')
+        return _full_rank_moment(_unpack_chol(var_param, dim)[1], p)
+
+    return VariationalFamily(sample, entropy, log_prob, mean_and_cov,
+                             pth_moment, _chol_param_dim(dim), dim,
+                             'full_rank_gaussian', base_sample, transform)
+
+
+@_memoized_constructor
+def t_variational_family(dim, df):
+    """Full-rank multivariate Student-t with the Cholesky parameterization
+    (viabel_tpu/families.py:317-384): the scale mixture ``mu + (z L^T) /
+    s`` with ``s = sqrt(chi2_df / df)`` shared by every coordinate of a
+    sample; the base draws are ``{'z': (n, d), 'chi2': (n,)}``.  The
+    entropy drops df-only constants; the fourth moment carries the shared
+    divisor's ``df^2 / ((df - 2)(df - 4))``."""
+    if df <= 2:
+        raise ValueError('df must be greater than 2')
+
+    def base_sample(generator, n_samples, dtype=torch.float32):
+        z = torch.randn((n_samples, dim), generator=generator, dtype=dtype,
+                        device=generator.device)
+        return dict(z=z, chi2=chi2_sample(generator, df, (n_samples,),
+                                          dtype))
+
+    def transform(var_param, draws):
+        mu, L = _unpack_chol(var_param, dim)
+        s = torch.sqrt(draws['chi2'] / df)
+        return mu + (draws['z'] @ L.T) / s[..., None]
+
+    def sample(generator, var_param, n_samples):
+        return transform(var_param,
+                         base_sample(generator, n_samples, var_param.dtype))
+
+    def entropy(var_param):
+        return torch.sum(var_param[dim:2 * dim])  # = 0.5 log det Sigma
+
+    def log_prob(var_param, x):
+        mu, L = _unpack_chol(var_param, dim)
+        return mvt_logpdf_chol(x, mu, L, df)
+
+    def mean_and_cov(var_param):
+        mu, L = _unpack_chol(var_param, dim)
+        return mu, df / (df - 2.0) * (L @ L.T)
+
+    def pth_moment(var_param, p):
+        if p not in (2, 4):
+            raise ValueError('only p = 2 or 4 supported')
+        if df <= p:
+            raise NoClosedFormMomentError(
+                'df must be greater than p = {} for a closed-form moment '
+                '(df = {}); callers fall back to empirical central '
+                'moments'.format(p, df))
+        return _full_rank_moment(_unpack_chol(var_param, dim)[1], p,
+                                 df / (df - 2),
+                                 df ** 2 / ((df - 2) * (df - 4)))
+
+    return VariationalFamily(sample, entropy, log_prob, mean_and_cov,
+                             pth_moment, _chol_param_dim(dim), dim,
+                             'full_rank_t', base_sample, transform, df)
+
+
 def init_from_moments(family, mean, cov):
-    """Variational parameters ``[mean, log_scale]`` of a mean-field family
-    from a target's first and second moments, with ``log_scale = 0.5 log
-    diag(cov)`` (viabel_tpu/families.py:387-411).  For a Student-t family
-    the scale is set from `cov` directly, with no df/(df - 2) correction,
-    as the JAX package and the reference notebooks do.  Returns a float64
-    CPU tensor."""
+    """Variational parameters of `family` from a target's first and second
+    moments (viabel_tpu/families.py:387-411): ``[mean, 0.5 log diag(cov)]``
+    for a mean-field family, ``[mean, log diag L, strict lower L]`` of the
+    Cholesky factor ``L`` of `cov` for a full-rank one.  For a Student-t
+    family the scale is set from `cov` directly, with no df/(df - 2)
+    correction, as the JAX package and the reference notebooks do.
+    Returns a float64 CPU tensor."""
     mean = np.asarray(mean, dtype=float)
     cov = np.atleast_2d(np.asarray(cov, dtype=float))
     d = family.dim
     if mean.shape != (d,) or cov.shape != (d, d):
         raise ValueError('moments must have shape ({0},) and ({0}, {0})'
                          .format(d))
-    if family.name not in ('mf_gaussian', 'mf_t'):
-        raise NotImplementedError(
-            'init_from_moments takes the mean-field families; the full-rank '
-            'families are not ported yet (ROADMAP A.3)')
-    log_scale = 0.5 * np.log(np.diag(cov))
-    return torch.as_tensor(np.concatenate([mean, log_scale]))
+    if family.name in ('mf_gaussian', 'mf_t'):
+        log_scale = 0.5 * np.log(np.diag(cov))
+        return torch.as_tensor(np.concatenate([mean, log_scale]))
+    L = np.linalg.cholesky(cov)
+    off = L[np.tril_indices(d, k=-1)]
+    return torch.as_tensor(np.concatenate([mean, np.log(np.diag(L)), off]))

@@ -1,25 +1,53 @@
 """Variational objectives with autograd gradients.
 
-PyTorch port of viabel_tpu/objectives.py:50-125 and 177-222 (KLVI and
-CHIVI).  Each factory returns ``objective_and_grad(var_param,
-rng_or_draws) -> (value, grad)`` (CHIVI adds a third output, the
-log-norm); the gradient is a reparameterization gradient from
-`torch.autograd.grad`.
+PyTorch port of viabel_tpu/objectives.py.  Each factory returns
+``objective_and_grad(var_param, rng_or_draws) -> (value, grad)`` (CHIVI
+adds a third output, the log-norm, and `black_box_chivi_neff` a fourth,
+n_eff); the gradient is a reparameterization gradient.
 With ``presampled=True`` the objective consumes pre-generated base draws
 instead of a generator, and carries ``make_draws`` to produce them in one
 batch for a whole optimizer run, and ``make_draws_range`` to produce any
 range of iterations' draws of one stream (the IA optimizers' per-chain
-blocks).
+blocks).  A family whose base draws are a dict of tensors (the full-rank
+Student-t family's ``{'z', 'chi2'}``) gets its draws as a dict of blocks.
 
-The path-derivative KLVI variants, `black_box_chivi_neff`,
-`perturbed_black_box_vi` and `vectorize_log_density` come with a later
-slice.
+Every objective carries ``has_log_norm``.  The KLVI forms carry their pure
+scalar ``objective(var_param, draws)``, whose gradient the batched
+optimizers take with ``torch.func.grad_and_value``; the CHIVI forms carry
+``compute_log_weights`` and are themselves `torch.func`-transformable (the
+gradient a `torch.func.vjp` of the log-weights with a cotangent held
+constant), so the batched optimizers vmap them.
 """
 import torch
 
 from .ops.gaussian_lw import philox_normal
 
-__all__ = ['black_box_klvi', 'black_box_chivi']
+__all__ = ['black_box_klvi', 'black_box_klvi_pd', 'black_box_klvi_pd2',
+           'black_box_chivi', 'black_box_chivi_neff',
+           'perturbed_black_box_vi', 'vectorize_log_density']
+
+
+def vectorize_log_density(log_density):
+    """Lift a one-point log density ``f(x (d,)) -> scalar`` to batches
+    ``(n, d) -> (n,)`` with `torch.func.vmap`
+    (viabel_tpu/objectives.py:34-47); a ``(d,)`` input is passed through
+    unbatched."""
+    batched = torch.func.vmap(log_density)
+
+    def wrapped(x):
+        if x.dim() == 1:
+            return log_density(x)
+        return batched(x)
+
+    return wrapped
+
+
+def map_draws(fn, draws):
+    """``fn`` applied to a tensor of draws, or to each entry of a dict of
+    them (the full-rank Student-t family's ``{'z', 'chi2'}``)."""
+    if isinstance(draws, dict):
+        return {k: fn(v) for k, v in draws.items()}
+    return fn(draws)
 
 
 def _attach_presampling(fn, var_family, n_samples):
@@ -27,8 +55,10 @@ def _attach_presampling(fn, var_family, n_samples):
     draw generators (viabel_tpu/objectives.py:50-73).
 
     ``make_draws(generator, n_iters, dtype)`` returns one
-    ``(n_iters, n_samples, dim)`` block drawn in a single call on the
-    generator's device; row ``i`` feeds iteration ``i``.
+    ``(n_iters, n_samples, dim)`` block (a dict of such blocks for a
+    family with dict draws, each entry with the leading ``(n_iters,
+    n_samples)``) drawn in a single call on the generator's device; row
+    ``i`` feeds iteration ``i``.
 
     ``make_draws_range(generator, start, length, dtype)`` returns the rows
     of iterations ``[start, start + length)`` of the stream that the
@@ -45,7 +75,8 @@ def _attach_presampling(fn, var_family, n_samples):
 
     def make_draws(generator, n_iters, dtype=torch.float32):
         flat = var_family.base_sample(generator, n_iters * n_samples, dtype)
-        return flat.reshape(n_iters, n_samples, -1)
+        return map_draws(
+            lambda v: v.reshape(n_iters, n_samples, *v.shape[1:]), flat)
 
     def make_draws_range(generator, start, length, dtype=torch.float32):
         seed = generator.initial_seed()
@@ -71,11 +102,13 @@ def _sample_or_transform(var_family, n_samples, presampled, var_param,
     """Samples for one objective evaluation
     (viabel_tpu/objectives.py:105-125)."""
     if presampled:
-        if (not isinstance(rng_or_draws, torch.Tensor)
-                or not rng_or_draws.is_floating_point()):
+        leaves = (list(rng_or_draws.values())
+                  if isinstance(rng_or_draws, dict) else [rng_or_draws])
+        if not all(isinstance(v, torch.Tensor) and v.is_floating_point()
+                   for v in leaves):
             raise TypeError(
                 'this objective was built with presampled=True and consumes '
-                'pre-generated base draws (a floating-point tensor), but '
+                'pre-generated base draws (floating-point tensors), but '
                 'received {}. Optimizers feed draws automatically '
                 '(obj.make_draws); for direct calls pass '
                 'var_family.base_sample(generator, n_samples), or rebuild '
@@ -85,19 +118,10 @@ def _sample_or_transform(var_family, n_samples, presampled, var_param,
     return var_family.sample(rng_or_draws, var_param, n_samples)
 
 
-def black_box_klvi(var_family, log_density, n_samples, presampled=False):
-    """KLVI objective ``-ELBO`` with the closed-form entropy
-    (viabel_tpu/objectives.py:76-102).
-
-    `log_density` maps a batch ``(n, d)`` to ``(n,)`` log densities.
-    """
-
-    def objective(var_param, rng_or_draws):
-        samples = _sample_or_transform(var_family, n_samples, presampled,
-                                       var_param, rng_or_draws)
-        lower_bound = (var_family.entropy(var_param)
-                       + torch.mean(log_density(samples)))
-        return -lower_bound
+def _klvi_objective(objective, presampled, var_family, n_samples):
+    """``objective_and_grad`` of a pure scalar `objective`: its value and
+    its gradient by `torch.autograd.grad`, with the attributes the
+    optimizers read."""
 
     def objective_and_grad(var_param, rng_or_draws):
         with torch.enable_grad():
@@ -113,6 +137,87 @@ def black_box_klvi(var_family, log_density, n_samples, presampled=False):
     return objective_and_grad
 
 
+def black_box_klvi(var_family, log_density, n_samples, presampled=False):
+    """KLVI objective ``-ELBO`` with the closed-form entropy
+    (viabel_tpu/objectives.py:76-102).
+
+    `log_density` maps a batch ``(n, d)`` to ``(n,)`` log densities (use
+    `vectorize_log_density` for a one-point density).
+    """
+
+    def objective(var_param, rng_or_draws):
+        samples = _sample_or_transform(var_family, n_samples, presampled,
+                                       var_param, rng_or_draws)
+        lower_bound = (var_family.entropy(var_param)
+                       + torch.mean(log_density(samples)))
+        return -lower_bound
+
+    return _klvi_objective(objective, presampled, var_family, n_samples)
+
+
+def black_box_klvi_pd(var_family, log_density, n_samples, presampled=False):
+    """KLVI with a Monte Carlo entropy, ``-(E[log p] - E[log q])``, the
+    gradient through every path (viabel_tpu/objectives.py:128-143)."""
+
+    def objective(var_param, rng_or_draws):
+        samples = _sample_or_transform(var_family, n_samples, presampled,
+                                       var_param, rng_or_draws)
+        lower_bound = (torch.mean(log_density(samples))
+                       - torch.mean(var_family.log_prob(var_param, samples)))
+        return -lower_bound
+
+    return _klvi_objective(objective, presampled, var_family, n_samples)
+
+
+def black_box_klvi_pd2(var_family, log_density, n_samples,
+                       presampled=False):
+    """The path-derivative ("sticking the landing") KLVI estimator
+    (viabel_tpu/objectives.py:146-174): as `black_box_klvi_pd`, with the
+    density's parameters detached in ``log q``, so the score-function path
+    drops out of the gradient (Roeder et al. 2017)."""
+
+    def objective(var_param, rng_or_draws):
+        samples = _sample_or_transform(var_family, n_samples, presampled,
+                                       var_param, rng_or_draws)
+        frozen = var_param.detach()
+        lower_bound = (torch.mean(log_density(samples))
+                       - torch.mean(var_family.log_prob(frozen, samples)))
+        return -lower_bound
+
+    return _klvi_objective(objective, presampled, var_family, n_samples)
+
+
+def _chivi(alpha, var_family, log_density, n_samples, presampled, neff):
+    """The CHIVI objective, with the n_eff-scaled gradient when `neff`."""
+
+    def compute_log_weights(var_param, rng_or_draws):
+        samples = _sample_or_transform(var_family, n_samples, presampled,
+                                       var_param, rng_or_draws)
+        return log_density(samples) - var_family.log_prob(var_param, samples)
+
+    def value_grad_and_log_norm(var_param, rng_or_draws):
+        log_weights, vjp_fn = torch.func.vjp(
+            lambda p: compute_log_weights(p, rng_or_draws),
+            var_param.detach())
+        log_norm = torch.max(log_weights)
+        scaled_values = torch.exp(log_weights - log_norm) ** alpha
+        value = torch.log(torch.mean(scaled_values)) / alpha + log_norm
+        # the cotangent is a value of the primal, so it is held constant
+        vjp, = vjp_fn(scaled_values)
+        n = scaled_values.shape[-1]
+        if not neff:
+            return value, alpha * vjp / n, log_norm
+        n_eff = (torch.sum(scaled_values) ** 2
+                 / torch.sum(scaled_values ** 2))
+        return value, alpha * vjp * n_eff / (n * n), log_norm, n_eff
+
+    value_grad_and_log_norm.has_log_norm = True
+    value_grad_and_log_norm.compute_log_weights = compute_log_weights
+    if presampled:
+        _attach_presampling(value_grad_and_log_norm, var_family, n_samples)
+    return value_grad_and_log_norm
+
+
 def black_box_chivi(alpha, var_family, log_density, n_samples,
                     presampled=False):
     """CHIVI objective: the exponentiated CUBO
@@ -121,33 +226,53 @@ def black_box_chivi(alpha, var_family, log_density, n_samples,
     Returns ``(cubo, grad, log_norm)`` with ``log_norm = max lw``, the
     rescaling the windowed adagrad uses when run with ``has_log_norm``.
     The gradient is ``alpha J^T w / n`` with ``w = exp(lw - max lw)^alpha``
-    held constant: the vector-Jacobian product of the log-weights with a
-    detached cotangent, as the JAX package's ``jax.vjp`` with a stopped
-    cotangent; the CUBO value is not differentiated.  The naive Monte Carlo
-    CUBO degenerates once the log-weights spread over more than a few nats
-    (from d = 30 up in the JAX package's measurements): use it at small d.
+    held constant: the vector-Jacobian product (`torch.func.vjp`) of the
+    log-weights with the weights as its cotangent, as the JAX package's
+    ``jax.vjp`` with a stopped cotangent; the CUBO value is not
+    differentiated.  The function is `torch.func`-transformable, so the
+    batched optimizers vmap it.  The naive Monte Carlo CUBO degenerates
+    once the log-weights spread over more than a few nats (from d = 30 up
+    in the JAX package's measurements): use it at small d.
     """
+    return _chivi(alpha, var_family, log_density, n_samples, presampled,
+                  False)
 
-    def compute_log_weights(var_param, rng_or_draws):
-        samples = _sample_or_transform(var_family, n_samples, presampled,
-                                       var_param, rng_or_draws)
-        return log_density(samples) - var_family.log_prob(var_param, samples)
 
-    def objective_grad_and_log_norm(var_param, rng_or_draws):
-        with torch.enable_grad():
-            p = var_param.detach().requires_grad_(True)
-            log_weights = compute_log_weights(p, rng_or_draws)
-            lw = log_weights.detach()
-            log_norm = torch.max(lw)
-            scaled_values = torch.exp(lw - log_norm) ** alpha
-            value = torch.log(torch.mean(scaled_values)) / alpha + log_norm
-            vjp, = torch.autograd.grad(log_weights, p,
-                                       grad_outputs=scaled_values)
-        return value, alpha * vjp / scaled_values.numel(), log_norm
+def black_box_chivi_neff(alpha, var_family, log_density, n_samples,
+                         presampled=False):
+    """CHIVI with the gradient scaled by ``n_eff / n``, ``n_eff = (sum
+    w)^2 / sum w^2`` of the exponentiated weights
+    (viabel_tpu/objectives.py:225-280): a full-ESS weight set gives the
+    CHIVI gradient, one dominated by a few samples is damped toward zero.
+    Returns ``(cubo, grad, log_norm, n_eff)``."""
+    return _chivi(alpha, var_family, log_density, n_samples, presampled,
+                  True)
 
-    objective_grad_and_log_norm.has_log_norm = True
-    objective_grad_and_log_norm.compute_log_weights = compute_log_weights
-    if presampled:
-        _attach_presampling(objective_grad_and_log_norm, var_family,
-                            n_samples)
-    return objective_grad_and_log_norm
+
+def perturbed_black_box_vi(var_family, log_density, n_samples,
+                           perturbation_scale=0.1):
+    """KLVI at Gaussian-perturbed parameters, a smoothed objective
+    (viabel_tpu/objectives.py:283-303).  Each evaluation draws from the
+    generator, in this order, the standard-normal perturbation noise
+    (P,) and then the base draws of the ``n_samples`` samples, and returns
+    the KLVI value and gradient at ``var_param + perturbation_scale *
+    noise``.  ``perturbed_objective(var_param, noise, draws)`` is the same
+    objective as a pure function of both draws."""
+
+    def perturbed_objective(var_param, noise, draws):
+        perturbed = var_param + perturbation_scale * noise
+        samples = var_family.transform(perturbed, draws)
+        lower_bound = (var_family.entropy(perturbed)
+                       + torch.mean(log_density(samples)))
+        return -lower_bound
+
+    def objective(var_param, generator):
+        noise = torch.randn(var_param.shape, generator=generator,
+                            dtype=var_param.dtype, device=generator.device)
+        draws = var_family.base_sample(generator, n_samples, var_param.dtype)
+        return perturbed_objective(var_param, noise, draws)
+
+    objective_and_grad = _klvi_objective(objective, False, var_family,
+                                         n_samples)
+    objective_and_grad.perturbed_objective = perturbed_objective
+    return objective_and_grad

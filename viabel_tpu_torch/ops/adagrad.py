@@ -5,9 +5,12 @@ One CUDA kernel from ``csrc/adagrad.cu`` (see the note at its top):
 the body of its compiled ``lax.scan`` (``_make_adagrad_step`` with
 ``_window_accum``, viabel_tpu/optimizers.py:149-165 and 201-230, and the
 tail sum of ``_adagrad_run``, :269-275), on an `AdagradState` that lives
-on the device.  The iteration it runs is the state's int64 ``counter``,
-which the step advances, so the same launch serves every iteration and
-`optimizers._adagrad_run` can replay it from a CUDA graph (`replay`).
+on the device, for one run or for a batch of K runs at once (the
+JAX package's vmapped scan of `validated_vi_multistart` and
+`validated_vi_sweep`).  The iteration it runs is the state's int64
+``counter`` (one slot a run), which the step advances, so the same launch
+serves every iteration and `optimizers._adagrad_run` can replay it from a
+CUDA graph (`replay`).
 
 Each wrapper takes the plain version only for a tensor on the CPU; for a
 CUDA tensor it launches the kernel (building it on first use) or raises.
@@ -40,12 +43,15 @@ def reset_launches():
 
 
 class AdagradState(NamedTuple):
-    """The device-side state of one windowed-adagrad run, all of it on the
-    parameter's device in the parameter's dtype but ``counter``."""
+    """The device-side state of a windowed-adagrad run, or of a batch of
+    runs, all of it on the parameter's device in the parameter's dtype but
+    ``counter``.  A batch puts a leading run axis K on every field (the
+    shapes below are one run's); a single run has none, and its counter is
+    ``(1,)``."""
     param: torch.Tensor           # (P,), updated in place
     grads: torch.Tensor           # (window, P), the ring of gradients
     ring_log_norms: torch.Tensor  # (window,)
-    counter: torch.Tensor         # (1,) int64: the next step's iteration
+    counter: torch.Tensor         # (1,) or (K,) int64: the next iteration
     lr: torch.Tensor              # (n_iters,): the learning rate of each
     values: torch.Tensor          # (n_iters,)
     log_norms: torch.Tensor       # (n_iters,)
@@ -56,30 +62,50 @@ class AdagradState(NamedTuple):
 
 
 def new_state(init_param, lr, window, epsilon, keep_history):
-    """A fresh `AdagradState` at iteration 0 from a copy of `init_param`
-    (P,) and the per-iteration learning rates `lr` (n_iters,), which the
+    """A fresh `AdagradState` at iteration 0 from a copy of `init_param`,
+    (P,) for one run or (K, P) for a batch, and the per-iteration learning
+    rates `lr`, (n_iters,) or one table a run (K, n_iters), which the
     caller builds on the host and casts to the parameter's dtype; the tail
     is the last quarter, from iteration ``3 n_iters // 4``."""
     param = init_param.detach().clone()
     dtype, device = param.dtype, param.device
-    n_iters, P = lr.shape[0], param.shape[0]
+    batch, P = tuple(param.shape[:-1]), param.shape[-1]
+    n_iters = lr.shape[-1]
+    if len(batch) > 1 or tuple(lr.shape[:-1]) != batch:
+        raise ValueError('init_param must be (P,) or (K, P) and lr (n_iters,) '
+                         'or (K, n_iters) alike; got {} and {}'.format(
+                             tuple(param.shape), tuple(lr.shape)))
     return AdagradState(
         param=param,
-        grads=torch.zeros((window, P), dtype=dtype, device=device),
-        ring_log_norms=torch.zeros((window,), dtype=dtype, device=device),
-        counter=torch.zeros((1,), dtype=torch.int64, device=device),
+        grads=torch.zeros(batch + (window, P), dtype=dtype, device=device),
+        ring_log_norms=torch.zeros(batch + (window,), dtype=dtype,
+                                   device=device),
+        counter=torch.zeros(batch or (1,), dtype=torch.int64, device=device),
         lr=lr.to(device, dtype),
-        values=torch.empty((n_iters,), dtype=dtype, device=device),
-        log_norms=torch.empty((n_iters,), dtype=dtype, device=device),
-        params=(torch.empty((n_iters, P), dtype=dtype, device=device)
+        values=torch.empty(batch + (n_iters,), dtype=dtype, device=device),
+        log_norms=torch.empty(batch + (n_iters,), dtype=dtype,
+                              device=device),
+        params=(torch.empty(batch + (n_iters, P), dtype=dtype, device=device)
                 if keep_history else None),
-        tail_sum=torch.zeros((P,), dtype=dtype, device=device),
+        tail_sum=torch.zeros(batch + (P,), dtype=dtype, device=device),
         epsilon=float(epsilon), tail_start=3 * n_iters // 4)
+
+
+def _runs(state):
+    """`state` with a leading run axis: the tensors themselves for a batch,
+    views of K = 1 for a single run (writes go through)."""
+    if state.param.dim() == 2:
+        return state
+    return state._replace(**{
+        name: getattr(state, name)[None]
+        for name in ('param', 'grads', 'ring_log_norms', 'lr', 'values',
+                     'log_norms', 'params', 'tail_sum')
+        if getattr(state, name) is not None})
 
 
 _ptr = ctypes.c_void_p
 _SIGNATURES = {
-    'adagrad_step': [_ptr] * 12 + [ctypes.c_int, ctypes.c_int,
+    'adagrad_step': [_ptr] * 12 + [ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                    ctypes.c_longlong, ctypes.c_longlong,
                                    ctypes.c_double],
 }
@@ -99,66 +125,75 @@ def _lib():
 
 
 def _check(state, grad, value, log_norm):
-    param = state.param
-    P = param.shape[0]
-    check_tensor('param', param, None, None, (P,))
+    runs = _runs(state)
+    K, P = runs.param.shape
+    window, n_iters = runs.grads.shape[1], runs.values.shape[1]
+    batch = tuple(state.param.shape[:-1])
+    check_tensor('param', state.param, None, None, batch + (P,))
     for name, t, shape in (
-            ('grads', state.grads, (state.grads.shape[0], P)),
-            ('ring_log_norms', state.ring_log_norms,
-             (state.grads.shape[0],)),
-            ('lr', state.lr, state.values.shape),
-            ('values', state.values, None),
-            ('log_norms', state.log_norms, state.values.shape),
-            ('tail_sum', state.tail_sum, (P,)),
-            ('grad', grad, (P,)), ('value', value, ()),
-            ('log_norm', log_norm, ())):
-        check_tensor(name, t, param.dtype, param.device, shape)
+            ('grads', runs.grads, (K, window, P)),
+            ('ring_log_norms', runs.ring_log_norms, (K, window)),
+            ('lr', runs.lr, (K, n_iters)),
+            ('values', runs.values, (K, n_iters)),
+            ('log_norms', runs.log_norms, (K, n_iters)),
+            ('tail_sum', runs.tail_sum, (K, P)),
+            ('grad', grad, batch + (P,)), ('value', value, batch),
+            ('log_norm', log_norm, batch)):
+        check_tensor(name, t, state.param.dtype, state.param.device, shape)
     if state.params is not None:
-        check_tensor('params', state.params, param.dtype, param.device,
-                     (state.values.shape[0], P))
+        check_tensor('params', runs.params, state.param.dtype,
+                     state.param.device, (K, n_iters, P))
     c = state.counter
-    if c.dtype != torch.int64 or tuple(c.shape) != (1,) \
-            or c.device != param.device:
-        raise TypeError('counter must be an int64 (1,) tensor on {}'
-                        .format(param.device))
+    if c.dtype != torch.int64 or tuple(c.shape) != (K,) \
+            or c.device != state.param.device or not c.is_contiguous():
+        raise TypeError('counter must be a contiguous int64 ({},) tensor on '
+                        '{}'.format(K, state.param.device))
 
 
 def adagrad_step_plain(state, grad, value, log_norm):
     """Plain version of the step kernel, in tensor operations on the
-    device counter (no host decision, so it too could be captured):
-    the masked ring of the JAX package's ``_window_accum``, the update and
-    the outputs of iteration ``counter``, which it then advances."""
-    window = state.grads.shape[0]
-    i = state.counter
-    slot = torch.remainder(i, window)
-    state.grads.index_copy_(0, slot, grad[None])
-    state.ring_log_norms.index_copy_(0, slot, log_norm.reshape(1))
-    ln = state.ring_log_norms
-    valid = (torch.arange(window, device=i.device)
-             < torch.clamp(i + 1, max=window))
-    low = torch.min(torch.where(valid, ln, math.inf))
+    device counters (no host decision, so it too could be captured): for
+    each run, the masked ring of the JAX package's ``_window_accum``, the
+    update and the outputs of iteration ``counter``, which it then
+    advances."""
+    s = _runs(state)
+    K, window, P = s.grads.shape
+    i = s.counter                                          # (K,)
+    grad, value, log_norm = (grad.reshape(K, P), value.reshape(K, 1),
+                             log_norm.reshape(K, 1))
+    slot = torch.remainder(i, window)[:, None]             # (K, 1)
+    s.grads.scatter_(1, slot[:, :, None].expand(K, 1, P), grad[:, None])
+    s.ring_log_norms.scatter_(1, slot, log_norm)
+    ln = s.ring_log_norms
+    valid = (torch.arange(window, device=i.device)[None]
+             < torch.clamp(i + 1, max=window)[:, None])    # (K, window)
+    low = torch.amin(torch.where(valid, ln, math.inf), dim=1, keepdim=True)
     scale = torch.where(valid, torch.exp(low - ln), 0.0)
-    accum = torch.sum((scale[:, None] * state.grads) ** 2, dim=0)
-    lr = state.lr.index_select(0, i)
-    state.param.sub_(lr * grad / torch.sqrt(state.epsilon + accum))
-    state.values.index_copy_(0, i, value.reshape(1))
-    state.log_norms.index_copy_(0, i, log_norm.reshape(1))
-    if state.params is not None:
-        state.params.index_copy_(0, i, state.param[None])
-    state.tail_sum.add_(torch.where(i >= state.tail_start, state.param, 0.0))
-    state.counter.add_(1)
+    accum = torch.sum((scale[:, :, None] * s.grads) ** 2, dim=1)
+    lr = s.lr.gather(1, i[:, None])
+    s.param.sub_(lr * grad / torch.sqrt(state.epsilon + accum))
+    s.values.scatter_(1, i[:, None], value)
+    s.log_norms.scatter_(1, i[:, None], log_norm)
+    if s.params is not None:
+        s.params.scatter_(1, i[:, None, None].expand(K, 1, P),
+                          s.param[:, None])
+    s.tail_sum.add_(torch.where((i >= state.tail_start)[:, None], s.param,
+                                0.0))
+    s.counter.add_(1)
 
 
 def adagrad_step(state, grad, value, log_norm):
-    """One windowed-adagrad iteration on `state`, in place: the kernel on
-    the card, its plain version on the CPU.  `grad` (P,), `value` and
-    `log_norm` (0-d) are in the parameter's dtype and device."""
+    """One windowed-adagrad iteration of every run of `state`, in place:
+    the kernel on the card (one block a run), its plain version on the
+    CPU.  `grad` (P,) or (K, P), `value` and `log_norm` () or (K,) are in
+    the parameter's dtype and device."""
     _check(state, grad, value, log_norm)
     if state.param.device.type == 'cpu':
         return adagrad_step_plain(state, grad, value, log_norm)
     device, dtype = state.param.device, state.param.dtype
     fn = getattr(_lib(), 'adagrad_step_{}'.format(_SUFFIX[dtype]))
     params = state.params.data_ptr() if state.params is not None else None
+    K, P = state.counter.shape[0], state.param.shape[-1]
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device)
         rc = fn(grad.data_ptr(), value.data_ptr(), log_norm.data_ptr(),
@@ -166,9 +201,9 @@ def adagrad_step(state, grad, value, log_norm):
                 state.param.data_ptr(), state.grads.data_ptr(),
                 state.ring_log_norms.data_ptr(), state.values.data_ptr(),
                 state.log_norms.data_ptr(), params,
-                state.tail_sum.data_ptr(), state.param.shape[0],
-                state.grads.shape[0], state.values.shape[0],
-                state.tail_start, state.epsilon, stream.cuda_stream)
+                state.tail_sum.data_ptr(), K, P, state.grads.shape[-2],
+                state.values.shape[-1], state.tail_start, state.epsilon,
+                stream.cuda_stream)
         capturing = torch.cuda.is_current_stream_capturing()
     if rc != 0:
         raise RuntimeError('adagrad_step launch failed: CUDA error {}'

@@ -7,7 +7,10 @@ its state lives on the device and each iteration is the objective's value
 and gradient followed by one hand-written step kernel
 (`ops.adagrad.adagrad_step`) that reads the iteration from a counter on
 the device; on the card a presampled objective's run is that body captured
-in a CUDA graph and replayed, so no iteration waits for the host.  The IA
+in a CUDA graph and replayed, so no iteration waits for the host.  A batch
+of K runs (`_adagrad_runs`, the batched pipelines' optimizer) is the same
+body with a leading run axis: ``torch.func.vmap`` of the objective's
+gradient and one launch of the step kernel, one block a run.  The IA
 optimizers' chain step runs eagerly: a Python loop over iterations, the
 learning rate a host float, nothing waiting for the device.  Their chains
 are a batch dimension: one batched step an iteration through
@@ -21,6 +24,7 @@ import torch
 from ._device import default_generator, resolve_device
 from .diagnostics import (compute_R_hat_adaptive, compute_R_hat_halfway,
                           stochastic_iterate_averaging)
+from .objectives import map_draws
 from .ops.adagrad import adagrad_step
 from .ops.adagrad import new_state as new_adagrad_state
 from .ops.adagrad import replay as adagrad_replay
@@ -81,15 +85,26 @@ def _wrap_objective(objective_and_grad, has_log_norm):
 _GRAPH_ITERS = 1
 
 
+def _draw_row(draws, counter, batched):
+    """The presampled draws of the iteration the device counter names: row
+    ``counter[0]`` of a ``(n_iters, n_mc, ...)`` block, or of each run's
+    ``(K, n_iters, n_mc, ...)`` block (the runs of a batch stand at one
+    iteration), each entry of a dict of blocks alike."""
+    dim = 1 if batched else 0
+    index = counter[:1]
+    return map_draws(lambda v: v.index_select(dim, index).squeeze(dim),
+                     draws)
+
+
 def _adagrad_iteration(obj, state, source):
     """One adagrad iteration on the device-side `state`
-    (`ops.adagrad.AdagradState`): the objective's value and gradient at
-    ``state.param``, cast to its dtype, then the step kernel.  A presampled
-    objective takes the row of its ``(n_iters, n_mc, d)`` draws that the
+    (`ops.adagrad.AdagradState`, one run or a batch): the objective's
+    value and gradient at ``state.param``, cast to its dtype, then the step
+    kernel.  A presampled objective takes the row of its draws that the
     device counter names; any other takes the generator `source`.  Nothing
     in it waits for the device or decides on the host, so the same body
     runs eagerly and under capture."""
-    xs = (source.index_select(0, state.counter)[0]
+    xs = (_draw_row(source, state.counter, state.param.dim() == 2)
           if getattr(obj, 'presampled', False) else source)
     value, grad, log_norm = obj(state.param, xs)
     dtype = state.param.dtype
@@ -144,15 +159,40 @@ def _learning_rates(n_iters, learning_rate, learning_rate_end, dtype):
                         dtype=torch.float64).to(dtype)
 
 
+def _drive(obj, state, draws, n_iters, window, driver):
+    """Run `state` (one run or a batch) through `n_iters` iterations of
+    the body, by the driver that the objective's type and the device pick
+    (see `_adagrad_run`), and check that every iteration ran."""
+    presampled = getattr(obj, 'presampled', False)
+    on_card = state.param.device.type == 'cuda'
+    if driver is None:
+        driver = 'graph' if presampled and on_card else 'eager'
+    if driver == 'graph' and not (presampled and on_card):
+        raise ValueError('the graph driver runs presampled objectives on the '
+                         'card only')
+    if driver not in ('eager', 'graph'):
+        raise ValueError('driver must be None, "eager" or "graph"')
+    if driver == 'graph':
+        _adagrad_graph(obj, state, draws, n_iters, window)
+    else:
+        _adagrad_eager(obj, state, draws, n_iters)
+    if int(state.counter[0]) != n_iters:
+        raise RuntimeError('the adagrad run stopped at iteration {} of {}'
+                           .format(int(state.counter[0]), n_iters))
+    tail_mean = state.tail_sum / (n_iters - state.tail_start)
+    return state.values, state.log_norms, state.params, tail_mean
+
+
 def _adagrad_run(obj, n_iters, window, learning_rate, epsilon,
                  learning_rate_end, init_param, draws, keep_history=True,
                  driver=None):
     """The whole adagrad run (viabel_tpu/optimizers.py:201-230, 241-303).
 
     `draws` is the ``(n_iters, n_mc, d)`` block of base draws for a
-    presampled objective (row ``i`` feeds iteration ``i``), or a
-    `torch.Generator` for an objective that samples itself.  The state of
-    the run lives on the device (`ops.adagrad.AdagradState`) and one body
+    presampled objective (row ``i`` feeds iteration ``i``; a dict of such
+    blocks for a family with dict draws), or a `torch.Generator` for an
+    objective that samples itself.  The state of the run lives on the
+    device (`ops.adagrad.AdagradState`) and one body
     (`_adagrad_iteration`) runs every iteration.  The driver is chosen by
     the objective's type and the device: a presampled objective on the card
     runs as a replayed CUDA graph (`_adagrad_graph`); an objective that
@@ -166,28 +206,43 @@ def _adagrad_run(obj, n_iters, window, learning_rate, epsilon,
     Returns ``(values, log_norms, params, tail_mean)``; ``params`` is the
     ``(n_iters, P)`` iterate history, or None with ``keep_history=False``.
     """
-    presampled = getattr(obj, 'presampled', False)
-    on_card = init_param.device.type == 'cuda'
-    if driver is None:
-        driver = 'graph' if presampled and on_card else 'eager'
-    if driver == 'graph' and not (presampled and on_card):
-        raise ValueError('the graph driver runs presampled objectives on the '
-                         'card only')
-    if driver not in ('eager', 'graph'):
-        raise ValueError('driver must be None, "eager" or "graph"')
     state = new_adagrad_state(
         init_param, _learning_rates(n_iters, learning_rate,
                                     learning_rate_end, init_param.dtype),
         window, epsilon, keep_history)
-    if driver == 'graph':
-        _adagrad_graph(obj, state, draws, n_iters, window)
-    else:
-        _adagrad_eager(obj, state, draws, n_iters)
-    if int(state.counter) != n_iters:
-        raise RuntimeError('the adagrad run stopped at iteration {} of {}'
-                           .format(int(state.counter), n_iters))
-    tail_mean = state.tail_sum / (n_iters - state.tail_start)
-    return state.values, state.log_norms, state.params, tail_mean
+    return _drive(obj, state, draws, n_iters, window, driver)
+
+
+def _adagrad_runs(objective_and_grad, has_log_norm, n_iters, window,
+                  lr_tables, epsilon, inits, draws, keep_history=False,
+                  driver=None):
+    """K adagrad runs at once, the counterpart of the JAX package's
+    vmapped scan (viabel_tpu/pipeline.py:399-412, 732-745).
+
+    `inits` is ``(K, P)``, `lr_tables` the ``(K, n_iters)`` learning rate
+    of each run and iteration (`_learning_rates` of each run's schedule),
+    and `draws` the ``(K, n_iters, n_mc, ...)`` presampled draws (a dict
+    of such blocks for dict draws) of a presampled objective.  Each
+    iteration is `_batched_step`'s vmapped value and gradient of every run
+    followed by one launch of the step kernel (one block a run), the body
+    that `_adagrad_run` drives: a replayed CUDA graph on the card, eagerly
+    on the CPU.  An objective that samples from a generator cannot be
+    vmapped: `draws` is then a list of K generators and the runs go one
+    after another, eagerly.  Returns ``(values (K, n_iters), log_norms
+    (K, n_iters), params (K, n_iters, P) or None, tail_means (K, P))``.
+    """
+    if not getattr(objective_and_grad, 'presampled', False):
+        obj = _wrap_objective(objective_and_grad, has_log_norm)
+        outs = [_drive(obj, new_adagrad_state(init, lr, window, epsilon,
+                                              keep_history),
+                       generator, n_iters, window, driver)
+                for init, lr, generator in zip(inits, lr_tables, draws)]
+        return tuple(None if parts[0] is None else torch.stack(parts)
+                     for parts in zip(*outs))
+    step = _batched_step(objective_and_grad, has_log_norm)
+    state = new_adagrad_state(inits, lr_tables, window, epsilon,
+                              keep_history)
+    return _drive(step, state, draws, n_iters, window, driver)
 
 
 def adagrad_optimize(n_iters, objective_and_grad, init_param, *,
@@ -237,25 +292,39 @@ def _perturbed_inits(init_param, n_optimisers, scale, noise):
 
 
 def _batched_step(objective_and_grad, has_log_norm):
-    """``step(params (C, P), draws (C, n_mc, d)) -> (values (C,), grads
+    """``step(params (C, P), draws (C, n_mc, ...)) -> (values (C,), grads
     (C, P), log_norms (C,))``: the objective's value and gradient for every
-    chain in one batched call (``vmap`` of ``grad_and_value`` over the
-    objective's pure function, the counterpart of the JAX package's vmapped
-    scan).  Objectives with a log-norm output come with a later slice."""
+    chain or run in one batched call, the counterpart of the JAX package's
+    vmapped scan.  A KLVI-form objective is ``vmap`` of ``grad_and_value``
+    of its pure ``objective``; a CHIVI-form one (it carries
+    ``compute_log_weights``) is ``vmap`` of the objective itself, whose
+    gradient is a `torch.func.vjp` of the log-weights with the stopped
+    cotangent (viabel_tpu/objectives.py:207-216), and its log-norm output
+    is kept when `has_log_norm` (default: the objective's own flag)."""
     if has_log_norm is None:
         has_log_norm = getattr(objective_and_grad, 'has_log_norm', False)
-    objective = getattr(objective_and_grad, 'objective', None)
-    if has_log_norm or objective is None:
-        raise NotImplementedError(
-            'the IA optimizers batch chains through the pure '
-            '`objective_and_grad.objective` of a KLVI objective; objectives '
-            'with a log-norm output are not ported yet')
-    value_and_grad = torch.func.vmap(torch.func.grad_and_value(objective))
+    if getattr(objective_and_grad, 'compute_log_weights', None) is not None:
+        batched = torch.func.vmap(objective_and_grad)
 
-    def step(params, draws):
-        grad, value = value_and_grad(params, draws)
-        return value, grad, torch.zeros_like(value)
+        def step(params, draws):
+            value, grad, log_norm = batched(params, draws)[:3]
+            return value, grad, (log_norm if has_log_norm
+                                 else torch.zeros_like(value))
+    else:
+        objective = getattr(objective_and_grad, 'objective', None)
+        if has_log_norm or objective is None:
+            raise NotImplementedError(
+                'batched runs take the port\'s objectives: a KLVI form '
+                'with its pure `objective`, or a CHIVI form with its '
+                '`compute_log_weights`')
+        value_and_grad = torch.func.vmap(
+            torch.func.grad_and_value(objective))
 
+        def step(params, draws):
+            grad, value = value_and_grad(params, draws)
+            return value, grad, torch.zeros_like(value)
+
+    step.presampled = True
     return step
 
 

@@ -104,8 +104,11 @@ result line:
     500, lr 0.01, from a single 5000-iteration KLVI fit with +3 on the
     log-scales) and full-rank t(100) KLVI (n_mc 100, lr 0.1 -> 0.001); each
     configuration's 16 khats, their mean against the JAX package's 16-seed
-    band (benchmarks/KHAT_NOISE.md; inside or outside one sd is printed, 3
-    sd or more fails), every khat and d2 finite; K1 (the regression
+    band (benchmarks/KHAT_NOISE.md for the mean-field configurations; for
+    the full-rank one the JAX package's own float32 run of the same 16
+    starts on the CPU, tools/jax_khat_band.py, with the TPU run's band
+    printed for the record; inside or outside one sd is printed, 3 sd or
+    more fails), every khat and d2 finite; K1 (the regression
     density), K3, the combine and the step kernel (one launch a batched
     iteration, replayed after the window) must have launched; then each
     configuration's batched optimizer alone (graph, 2000 iterations) and
@@ -123,11 +126,36 @@ result line:
     kernel at P = 5150 must have launched;
 16. the batched pipelines (each of phase 13's configurations, 4 runs at
     their own rates) and a full-rank t ``validated_vi`` at a small size on
-    the card against the CPU, float64, on shared draws (1e-10 relative).
+    the card against the CPU, float64, on shared draws (1e-10 relative);
+17. the command line and the resume path, float32, each part with every
+    launch count set to 0 just before it and read just after (the
+    commands run in this process through ``__main__.main``): (a) ``run``
+    with the default config (funnel, mf-t(40), presampled KLVI n_mc 100,
+    adagrad 5000 iterations at lr 0.01, 1e6 bound samples; nothing cut,
+    progress lines on), its bounds and khat finite, K1, K3, the combine and
+    the step kernel launched (the step as in phase 2); (b) the same with
+    ``--checkpoint-path`` (a checkpoint every 1000 iterations),
+    uninterrupted, and interrupted after its second save and resumed: the
+    two final checkpoints equal entry for entry, bit for bit, then held
+    against plain ``adagrad_optimize`` on the same draws (largest relative
+    difference printed; with progress lines the same bits) and the step's
+    executions and replays counted; again at float64 through
+    ``adagrad_optimize_resumable`` with a generator of seed 7 (resumed
+    equals uninterrupted, plain within 1e-12 relative); (c) ``run`` of
+    linear regression with 4 RMSProp-IA chains and checkpoints, 2000
+    iterations (of the default 5000), interrupted after its first save and
+    resumed, its checkpoint equal to the uninterrupted one's; K2,
+    ``philox_normal``, K3 and the combine launched; (d) ``run`` of 2
+    Adam-IA chains sampling inside the step (``--no-presampled``), mf-t on
+    eight-schools CP, 2000 iterations; (e) examples/eight_schools_ia.py's
+    protocol in its quick mode (CP 2250 and NCP 2750 iterations of 9000
+    and 11000; 2 RMSProp-IA chains, mean-field Gaussian KLVI n_mc 100
+    sampling inside the step), the averaging starts inside the history and
+    the final-window R-hat maxima finite.
 
 The line before the last is a JSON object with one entry per kernel:
 route, source, the TPU kernel it replaces, launches on the paths of phases
-2, 6, 10, 13, 14 and 15 (summed), the float32 max abs error, its time by
+2, 6, 10, 13, 14, 15 and 17 (summed), the float32 max abs error, its time by
 events around the call (``ms``) and on the card (``device_ms``), the plain
 version's time, its bound (the larger of bytes over 3.35 TB/s and
 operations over 67 TFLOP/s float32, H100 SXM data-sheet peaks; integer
@@ -141,6 +169,8 @@ graph replays included, and its ``instances`` are phase 12's timed rows
 (a batch of 16 runs, and P = 5150).  The last line is
 ``{"ok": true, "device": {...}}``.
 """
+import contextlib
+import io
 import json
 import math
 import os
@@ -195,13 +225,28 @@ KHAT_BAND = {('eight_schools_ncp', 'KLVI'): (0.654, 0.029),
 # 207 (16 starts from one init, the start axis the seed axis), nothing cut;
 # the JAX package's 16-seed khat means and sds (benchmarks/KHAT_NOISE.md)
 MS_STARTS, MS_ITERS, MS_BOUND = 16, 5000, 1_000_000
+# the full-rank band is the JAX package's own float32 run of the same 16
+# starts on the CPU (tools/jax_khat_band.py: float32 -0.9063 +- 0.0635,
+# float64 -0.9220 +- 0.0459); the TPU run's band (-0.685 +- 0.165,
+# benchmarks/KHAT_NOISE.md) comes from the TPU's arithmetic, not from the
+# algorithm, and is printed beside it for the record only
 MS_BAND = {'mf-t KLVI': (0.929, 0.028), 'mf-t CHIVI': (0.354, 0.027),
-           'full-rank t KLVI': (-0.685, 0.165)}
+           'full-rank t KLVI': (-0.906, 0.064)}
+TPU_BAND = {'full-rank t KLVI': (-0.685, 0.165)}
 # the learning-rate sweep on robust regression (mf-t(40) KLVI, ends rate /
 # 10, the API's default 1e5 bound samples)
 SWEEP_RATES, SWEEP_ITERS = (0.003, 0.01, 0.03, 0.1), 5000
 # examples/large_d.py's default: d = 100 (P = 5150), full-rank Gaussian
 LD_D, LD_ITERS, LD_MC, LD_BOUND = 100, 10000, 800, 1_000_000
+# phase 17: the command line on the card.  (c) and (d) run 2000
+# iterations, (e) the quick mode of examples/eight_schools_ia.py (2250 and
+# 2750 of 9000 and 11000), to keep the eager IA chain steps within about a
+# minute; every width is full
+CLI_IA_ITERS = 2000
+CLI_SAVE_EVERY = 1000  # the resumable drivers' default, which run uses
+ES_IA = (('eight-schools CP', 'eight_schools_cp_model', 9000 // 4, 1.20, 0),
+         ('eight-schools NCP', 'eight_schools_ncp_model', 11000 // 4, 1.15,
+          1))
 
 
 def ops_k2(d, n_rows):
@@ -1369,10 +1414,10 @@ def batched_rate(vt, obj, fam, init, lr, lr_end, n_iters=2000, seed=8):
     """Batched iterations a second of the 16-start optimizer alone
     (graph), and the card's busy share over 500 iterations."""
     from viabel_tpu_torch.optimizers import _adagrad_runs, _learning_rates
-    from viabel_tpu_torch.pipeline import _stack_draws
+    from viabel_tpu_torch.objectives import stack_draws
 
     g = card_generator(seed)
-    draws = _stack_draws([obj.make_draws(g, n_iters, torch.float32)
+    draws = stack_draws([obj.make_draws(g, n_iters, torch.float32)
                           for _ in range(MS_STARTS)])
     lr_tables = _learning_rates(n_iters, lr, lr_end,
                                 torch.float32).repeat(MS_STARTS, 1)
@@ -1432,6 +1477,10 @@ def multistart_path(vt):
                           sd, z, 'inside' if inside else 'OUTSIDE',
                           out['best'], float(np.median(d2))))
         log('  khats: {}'.format(json.dumps([float(k) for k in khat])))
+        if name in TPU_BAND:
+            log('  (for the record: the JAX package\'s TPU run gave {} +- {}; '
+                'the band above is its CPU float32 run, '
+                'tools/jax_khat_band.py)'.format(*TPU_BAND[name]))
         if not (np.all(np.isfinite(khat)) and np.all(np.isfinite(d2))):
             raise AssertionError('multistart {}: a khat or d2 is not finite'
                                  .format(name))
@@ -1531,8 +1580,8 @@ def batched_card_vs_cpu(vt):
     versions), float64, on shared draws made on the CPU; 1e-10 relative."""
     from viabel_tpu_torch.models import robust_regression_model
     from viabel_tpu_torch.optimizers import _learning_rates, _wrap_objective
-    from viabel_tpu_torch.pipeline import (_batch_core, _pipeline_core,
-                                           _stack_draws)
+    from viabel_tpu_torch.objectives import stack_draws
+    from viabel_tpu_torch.pipeline import _batch_core, _pipeline_core
     from viabel_tpu_torch.psis import _tail_len
 
     model = robust_regression_model()
@@ -1550,9 +1599,9 @@ def batched_card_vs_cpu(vt):
         g = torch.Generator().manual_seed(12)
         init = (torch.tensor([-2.5, 1.5, 0.5, 0.5]) if init is None
                 else init.cpu()).double()
-        opt = _stack_draws([obj.make_draws(g, n_iters, torch.float64)
+        opt = stack_draws([obj.make_draws(g, n_iters, torch.float64)
                             for _ in range(K)])
-        bound = _stack_draws([fam.base_sample(g, n_bound, torch.float64)
+        bound = stack_draws([fam.base_sample(g, n_bound, torch.float64)
                               for _ in range(K)])
         inits = init + 0.1 * torch.randn(K, init.shape[0], generator=g,
                                          dtype=torch.float64)
@@ -1683,6 +1732,315 @@ def kernels_only(vt, model, fam):
     return 0
 
 
+def run_cli(argv):
+    """``python -m viabel_tpu_torch`` in this process: ``(host seconds,
+    stdout)``, the time closed by a device synchronization."""
+    from viabel_tpu_torch.__main__ import main as cli_main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        t, _ = wall(lambda: cli_main(argv))
+    return t, buf.getvalue()
+
+
+def cli_results(out):
+    """The printed bounds and khat of a ``run``: every value under 'Upper
+    bounds on the approximation error:' and the khat, each required
+    finite; the lines after the config are logged, progress lines
+    dropped."""
+    lines = [line for line in out.split('\n') if '\r' not in line]
+    body = lines[lines.index('}') + 1:]
+    for line in body:
+        log('    ' + line)
+    start = body.index('Upper bounds on the approximation error:')
+    bounds = {}
+    for line in body[start + 1:]:
+        if not line.startswith('    '):
+            break
+        label, value = line.strip().rsplit(None, 1)
+        bounds[label] = float(value)
+    khat = float(next(line for line in body
+                      if line.startswith('khat = ')).split()[2])
+    for name, value in list(bounds.items()) + [('khat', khat)]:
+        if not is_finite(value):
+            raise AssertionError('run: {} is not finite: {}'.format(name,
+                                                                    value))
+    return bounds, khat
+
+
+def interrupted(ck, after, fn):
+    """``fn()`` with `checkpoint.save_checkpoint` raising KeyboardInterrupt
+    once it has written `after` checkpoints.  The adagrad run passes the
+    interrupt on; the chain runs return their partial results, as the JAX
+    package's do."""
+    real = ck.save_checkpoint
+    calls = {'n': 0, 'raised': False}
+
+    def save(path, tree):
+        if calls['n'] >= after:
+            calls['raised'] = True
+            raise KeyboardInterrupt
+        calls['n'] += 1
+        return real(path, tree)
+
+    ck.save_checkpoint = save
+    try:
+        fn()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        ck.save_checkpoint = real
+    if not calls['raised']:
+        raise AssertionError('the run was not interrupted')
+
+
+def max_rel(got, want):
+    got, want = (torch.as_tensor(t).double().cpu() for t in (got, want))
+    return float(((got - want).abs() / want.abs().clamp_min(1e-300)).max())
+
+
+def same_entries(ck, path, other, names):
+    for name in names:
+        a, b = (ck.load_checkpoint_entry(p, name) for p in (path, other))
+        if not np.array_equal(a, b):
+            raise AssertionError('{}: entry {} differs from the '
+                                 'uninterrupted run\'s'.format(path, name))
+
+
+def add_launches(total, launches):
+    for name, count in launches.items():
+        total[name] = total.get(name, 0) + count
+
+
+def cli_default(vt, tmp):
+    """Phase 17 (a): ``run`` with the default config, progress lines on."""
+    reset_launches()
+    t, out = run_cli(['run'])
+    launches = read_launches()
+    log('run, the default config (funnel, mf-t(40), presampled KLVI n_mc '
+        '100, adagrad 5000 iterations at lr 0.01, 1e6 bound samples, '
+        'float32, progress lines on): {:.3f} s; {} progress lines'.format(
+            t, out.count('\r  iter ')))
+    cli_results(out)
+    log('kernel launches on the run path: {}'.format(launches))
+    require_launched(launches, ('transform_score_partials', 'lw_partials',
+                                'combine_partials'), 'run')
+    require_adagrad_steps(launches, [5000], 'run')
+    return launches
+
+
+def cli_resume(vt, tmp):
+    """Phase 17 (b): ``run --checkpoint-path`` uninterrupted, interrupted
+    after its second save and resumed, held against each other bit for bit
+    and against plain `adagrad_optimize` on the same draws (with and
+    without progress lines); then the same at float64 through
+    `adagrad_optimize_resumable` with a generator of seed 7."""
+    from viabel_tpu_torch import checkpoint as ck
+    from viabel_tpu_torch.config import ExperimentConfig, build
+    from viabel_tpu_torch.experiments import _split
+
+    full, part = (os.path.join(tmp, n) for n in ('full.npz', 'part.npz'))
+    reset_launches()
+    t_full, out = run_cli(['run', '--quiet', '--checkpoint-path', full])
+    t_int, _ = wall(lambda: interrupted(ck, 2, lambda: run_cli(
+        ['run', '--quiet', '--checkpoint-path', part])))
+    stopped = int(ck.load_checkpoint_entry(part, 'i'))
+    t_res, _ = run_cli(['run', '--quiet', '--checkpoint-path', part])
+    same_entries(ck, part, full, ('i', 'param', 'grads', 'log_norms',
+                                  'values', 'lns', 'params'))
+    log('run --checkpoint-path (save every {}): uninterrupted {:.3f} s; '
+        'interrupted after its second save {:.3f} s (checkpoint at '
+        'iteration {}), resumed {:.3f} s; the resumed checkpoint equals the '
+        'uninterrupted one, bit for bit'.format(CLI_SAVE_EVERY, t_full,
+                                                t_int, stopped, t_res))
+    cli_results(out)
+    model, family, objective = build(ExperimentConfig())
+    init = family.init_param(device='cuda')
+
+    def gen():
+        return _split(card_generator(0), 3)[0]
+
+    plains = [vt.adagrad_optimize(5000, objective, init, generator=gen(),
+                                  device='cuda')]
+    with contextlib.redirect_stdout(io.StringIO()) as printed:
+        plains.append(vt.adagrad_optimize(5000, objective, init,
+                                          generator=gen(), progress=True,
+                                          device='cuda'))
+    if printed.getvalue().count('\r  iter ') != 101:
+        raise AssertionError('adagrad_optimize printed {} progress lines'
+                             .format(printed.getvalue().count('\r  iter ')))
+    launches = read_launches()
+    if not all(torch.equal(a, b) for a, b in zip(*plains)):
+        raise AssertionError('progress lines changed a result bit')
+    values = ck.load_checkpoint_entry(full, 'values')
+    lns = ck.load_checkpoint_entry(full, 'lns')
+    smoothed = ck.load_checkpoint_entry(full, 'params')[3750:].mean(axis=0)
+    log('  against plain adagrad_optimize on the same draws (float32; '
+        'with progress lines the same bits): values {!r}, log-norms {!r}, '
+        'smoothed parameter {!r} (a history mean against a running tail '
+        'sum) largest relative difference'.format(
+            max_rel(values, plains[0][2]), max_rel(lns, plains[0][3]),
+            max_rel(smoothed, plains[0][0])))
+    # executions: the uninterrupted run, the 3000 iterations before the
+    # interrupt, the 3000 after the resume, the two plain runs; the
+    # window's 10 eager iterations once a run that starts at 0
+    runs = [5000, 3000, 3000, 5000, 5000]
+    want = (sum(runs), sum(runs) - 10 * 4)
+    got = (launches['adagrad_step'], launches['adagrad_step (replayed)'])
+    log('  adagrad_step: {} executions ({} replayed), expected {} ({})'
+        .format(got[0], got[1], *want))
+    if got != want:
+        raise AssertionError('the resumed runs ran {} steps ({} replayed)'
+                             .format(*got))
+
+    init64 = family.init_param(torch.float64, 'cuda')
+    kw = dict(save_every=CLI_SAVE_EVERY, learning_rate=0.01, device='cuda')
+    p64, q64 = (os.path.join(tmp, n) for n in ('full64.npz', 'part64.npz'))
+
+    def plain64():
+        return vt.adagrad_optimize(5000, objective, init64,
+                                   generator=card_generator(7),
+                                   learning_rate=0.01, device='cuda')
+
+    # in turns: plain, segmented, (interrupted, resumed), plain
+    t_plain = [wall(plain64)[0]]
+    t_whole, whole = wall(lambda: ck.adagrad_optimize_resumable(
+        5000, objective, init64, checkpoint_path=p64,
+        generator=card_generator(7), **kw))
+    t_int, _ = wall(lambda: interrupted(
+        ck, 2, lambda: ck.adagrad_optimize_resumable(
+            5000, objective, init64, checkpoint_path=q64,
+            generator=card_generator(7), **kw)))
+    t_res, resumed = wall(lambda: ck.adagrad_optimize_resumable(
+        5000, objective, init64, checkpoint_path=q64,
+        generator=card_generator(7), **kw))
+    t, plain = wall(plain64)
+    t_plain.append(t)
+    if not all(torch.equal(a, b) for a, b in zip(resumed, whole)):
+        raise AssertionError('the resumed float64 run differs from the '
+                             'uninterrupted one')
+    worst = max(max_rel(a, b) for a, b in zip(resumed, plain))
+    log('  float64 (seed 7): resumed equals uninterrupted bit for bit; '
+        'against plain adagrad_optimize the largest relative difference '
+        'is {!r} (limit 1e-12)'.format(worst))
+    log('  float64 walls, 5000 iterations: plain adagrad_optimize {:.3f} / '
+        '{:.3f} s, adagrad_optimize_resumable in 5 segments with 5 saves '
+        '{:.3f} s ({:.0f} KB a checkpoint), interrupted at its third save '
+        '{:.3f} s, resumed from iteration 2000 (redraw, load, 3 segments) '
+        '{:.3f} s'.format(t_plain[0], t_plain[1], t_whole,
+                          os.path.getsize(p64) / 1e3, t_int, t_res))
+    if worst > 1e-12:
+        raise AssertionError('the resumable run differs from '
+                             'adagrad_optimize by {}'.format(worst))
+    return read_launches()
+
+
+def cli_chains(vt, tmp):
+    """Phase 17 (c): ``run`` of the regression IA path with checkpoints
+    (4 RMSProp-IA chains), uninterrupted, and interrupted after its first
+    save and resumed; the resumed checkpoint must equal the uninterrupted
+    one."""
+    from viabel_tpu_torch import checkpoint as ck
+
+    full, part = (os.path.join(tmp, n) for n in ('chains.npz',
+                                                 'chains_part.npz'))
+    argv = ['run', '--model', 'linear_regression', '--family',
+            'mean_field_gaussian', '--optimizer', 'rmsprop_ia',
+            '--n-chains', '4', '--n-iters', str(CLI_IA_ITERS), '--quiet',
+            '--checkpoint-path']
+    reset_launches()
+    t_full, out = run_cli(argv + [full])
+    launches = read_launches()
+    t_int, _ = wall(lambda: interrupted(ck, 1, lambda: run_cli(
+        argv + [part])))
+    t_res, _ = run_cli(argv + [part])
+    same_entries(ck, part, full, ('i', 'params', 'v', 'm', 'avg', 'values',
+                                  'lns', 'hist'))
+    log('run, linear regression (N 100, D 5), mean-field Gaussian, 4 '
+        'RMSProp-IA chains x {} iterations, checkpoints every {}, float32: '
+        'uninterrupted {:.3f} s, interrupted after its first save (the run '
+        'returns its partial results) {:.3f} s, resumed {:.3f} s; the '
+        'resumed checkpoint equals the uninterrupted one, bit for bit'.format(
+            CLI_IA_ITERS, CLI_SAVE_EVERY, t_full, t_int, t_res))
+    cli_results(out)
+    log('kernel launches on the IA run path (the uninterrupted run): {}'
+        .format(launches))
+    require_launched(launches, ('gaussian_sample_score_partials',
+                                'philox_normal', 'lw_partials',
+                                'combine_partials'), 'IA run')
+    return launches
+
+
+def cli_generator_chains(vt, tmp):
+    """Phase 17 (d): ``run`` with 2 Adam-IA chains that sample inside the
+    step (``--no-presampled``), mean-field t on eight-schools CP."""
+    reset_launches()
+    t, out = run_cli(['run', '--model', 'eight_schools_cp', '--family',
+                      'mean_field_t', '--optimizer', 'adam_ia',
+                      '--n-chains', '2', '--no-presampled', '--n-iters',
+                      str(CLI_IA_ITERS), '--quiet'])
+    launches = read_launches()
+    log('run, eight-schools CP, mf-t(40), 2 Adam-IA chains x {} iterations '
+        'sampling inside the step, float32: {:.3f} s ({:.1f} it/s)'.format(
+            CLI_IA_ITERS, t, CLI_IA_ITERS / t))
+    cli_results(out)
+    log('kernel launches: {}'.format(launches))
+    require_launched(launches, ('transform_score_partials', 'lw_partials',
+                                'combine_partials'), 'generator-driven IA')
+    return launches
+
+
+def eight_schools_ia(vt):
+    """Phase 17 (e): examples/eight_schools_ia.py's protocol through the
+    port (quick mode): RMSProp-IA, 2 chains, mean-field Gaussian KLVI n_mc
+    100 sampling inside the step, from each model's stored moments."""
+    from viabel_tpu_torch import models
+
+    reset_launches()
+    for label, name, n_iters, r_mean, seed in ES_IA:
+        model = getattr(models, name)()
+        K = model.dim
+        fam = vt.mean_field_gaussian_variational_family(K)
+        obj = vt.black_box_klvi(fam, model.log_prob, N_MC)
+        init = vt.init_from_moments(fam, model.true_mean,
+                                    np.diag(np.diag(model.true_cov)))
+        t, out = wall(lambda: vt.rmsprop_IA_optimize_with_rhat(
+            n_iters, obj, init.to('cuda', torch.float32), K,
+            generator=card_generator(seed), learning_rate=.01,
+            n_optimisers=2, r_mean_threshold=r_mean, rhat_window=500,
+            tail_avg_iters=3000 // 4, device='cuda'))
+        chains, ia_log = out[1], out[6]
+        m0, s0 = ia_log['start_avg_mean_iters'], \
+            ia_log['start_avg_sigma_iters']
+        rhm, rhs = ia_log['r_hat_mean'][-1].max(), \
+            ia_log['r_hat_sigma'][-1].max()
+        log('{} ({} iterations, 2 chains, float32): {:.3f} s ({:.1f} it/s); '
+            'averaging starts: mean block {}, sigma block {}; final-window '
+            'R-hat max: mean block {!r}, sigma block {!r}'.format(
+                label, n_iters, t, n_iters / t, m0, s0, float(rhm),
+                float(rhs)))
+        hist_len = chains.shape[1]
+        if not (is_finite(float(rhm)) and is_finite(float(rhs))
+                and 0 <= m0 <= hist_len and 0 <= s0 <= hist_len):
+            raise AssertionError('{}: R-hat or averaging start out of range'
+                                 .format(label))
+    return read_launches()
+
+
+def cli_path(vt):
+    """Phase 17: the command line and the resume path on the card, f32;
+    the launch counts of its parts summed."""
+    import tempfile
+
+    total = {}
+    with tempfile.TemporaryDirectory(dir=HERE, prefix='.phase17-') as tmp:
+        for part in (cli_default, cli_resume, cli_chains,
+                     cli_generator_chains):
+            add_launches(total, part(vt, tmp))
+    add_launches(total, eight_schools_ia(vt))
+    return total
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -1725,6 +2083,7 @@ def main():
     path_launches = [launches, r_launches, e_launches, multistart_path(vt),
                      sweep_path(vt), large_d_path(vt)]
     batched_card_vs_cpu(vt)
+    path_launches.append(cli_path(vt))
 
     kernels = [dict(name=name, route='cuda',
                     source='viabel_tpu_torch/csrc/' + SOURCE[name],

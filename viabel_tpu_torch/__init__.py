@@ -4,7 +4,7 @@ The PyTorch port of the JAX package `viabel_tpu`, for an NVIDIA H100.  It
 keeps the JAX package's module names, so each function has a counterpart
 of the same name there, and it imports neither JAX nor `viabel_tpu`.
 
-It carries four slices: the eight-schools validated-VI pipeline (the
+It carries five slices: the eight-schools validated-VI pipeline (the
 mean-field families, presampled KLVI, windowed adagrad, the bounds, PSIS,
 the fused pipeline `validated_vi`); R-hat-gated iterate averaging on
 Bayesian regression (`diagnostics`, the RMSProp/Adam IA optimizers, the
@@ -12,7 +12,12 @@ regression models, `improve_with_psis`); the KLVI-against-CHIVI
 harness `run_experiment` (`black_box_chivi`, `init_from_moments`, the
 non-centred eight-schools and funnel models); and the batched pipelines
 `validated_vi_multistart` and `validated_vi_sweep`, the full-rank families
-with the Cholesky densities, and the rest of the objectives.  The bound
+with the Cholesky densities, and the rest of the objectives; and the
+command line ``python -m viabel_tpu_torch run`` / ``configs``
+(`__main__`, `config`) with checkpoint and resume (`checkpoint`), the
+segmented IA chain runs with progress and objectives that sample inside
+the step, the constrained-parameter transforms (`transforms`) and the
+normal-mixture model.  The bound
 pass runs on hand-written CUDA kernels: K1, K3 and the combine in
 ``csrc/lw_stats.cu`` (`ops.lw_stats`), and K2, which draws a Gaussian q's
 samples in-kernel from a Philox stream, with ``philox_normal`` in
@@ -52,6 +57,9 @@ from .optimizers import (adagrad_optimize, adam_IA_optimize,
 from .pipeline import (DivergedRunWarning, validated_vi,
                        validated_vi_multistart, validated_vi_sweep)
 from .psis import psislw, weighted_moments
+from .transforms import (ParameterTransforms, identity_transform,
+                         interval_transform, lower_bounded_transform,
+                         positive_transform)
 
 __version__ = '0.1.0'
 
@@ -79,4 +87,7 @@ __all__ = [
     'validated_vi', 'validated_vi_multistart', 'validated_vi_sweep',
     'DivergedRunWarning',
     'resolve_device', 'fp32_matmul_policy',
+    # constrained-parameter transforms (the Stan unconstraining layer)
+    'ParameterTransforms', 'identity_transform', 'positive_transform',
+    'lower_bounded_transform', 'interval_transform',
 ]

@@ -11,6 +11,12 @@ range of iterations' draws of one stream (the IA optimizers' per-chain
 blocks).  A family whose base draws are a dict of tensors (the full-rank
 Student-t family's ``{'z', 'chi2'}``) gets its draws as a dict of blocks.
 
+An objective built with ``presampled=False`` samples from the generator
+it is given; given base draws instead, it transforms them, which is how
+the IA optimizers' batched chain step feeds it each chain's draws of an
+iteration (``iteration_draws(generator, dtype)``, the ``(n_samples,
+...)`` base draws that sampling from `generator` would transform).
+
 Every objective carries ``has_log_norm``.  The KLVI forms carry their pure
 scalar ``objective(var_param, draws)``, whose gradient the batched
 optimizers take with ``torch.func.grad_and_value``; the CHIVI forms carry
@@ -48,6 +54,25 @@ def map_draws(fn, draws):
     if isinstance(draws, dict):
         return {k: fn(v) for k, v in draws.items()}
     return fn(draws)
+
+
+def stack_draws(blocks):
+    """Stack a list of draws along a new leading axis, entry by entry for
+    dict draws."""
+    if isinstance(blocks[0], dict):
+        return {k: torch.stack([b[k] for b in blocks]) for k in blocks[0]}
+    return torch.stack(blocks)
+
+
+def _attach_draws(fn, var_family, n_samples):
+    """Give `fn` ``iteration_draws(generator, dtype)``: one evaluation's
+    base draws, those that sampling from `generator` transforms
+    (``var_family.sample(g, p, n) == transform(p, base_sample(g, n))``)."""
+    def iteration_draws(generator, dtype=torch.float32):
+        return var_family.base_sample(generator, n_samples, dtype)
+
+    fn.iteration_draws = iteration_draws
+    return fn
 
 
 def _attach_presampling(fn, var_family, n_samples):
@@ -100,7 +125,9 @@ def _attach_presampling(fn, var_family, n_samples):
 def _sample_or_transform(var_family, n_samples, presampled, var_param,
                          rng_or_draws):
     """Samples for one objective evaluation
-    (viabel_tpu/objectives.py:105-125)."""
+    (viabel_tpu/objectives.py:105-125): a presampled objective transforms
+    the base draws it is given and refuses anything else; any other samples
+    from a generator, or transforms base draws given in its place."""
     if presampled:
         leaves = (list(rng_or_draws.values())
                   if isinstance(rng_or_draws, dict) else [rng_or_draws])
@@ -114,6 +141,8 @@ def _sample_or_transform(var_family, n_samples, presampled, var_param,
                 'var_family.base_sample(generator, n_samples), or rebuild '
                 'the objective with presampled=False to consume '
                 'generators'.format(type(rng_or_draws).__name__))
+        return var_family.transform(var_param, rng_or_draws)
+    if not isinstance(rng_or_draws, torch.Generator):
         return var_family.transform(var_param, rng_or_draws)
     return var_family.sample(rng_or_draws, var_param, n_samples)
 
@@ -132,6 +161,7 @@ def _klvi_objective(objective, presampled, var_family, n_samples):
 
     objective_and_grad.has_log_norm = False
     objective_and_grad.objective = objective
+    _attach_draws(objective_and_grad, var_family, n_samples)
     if presampled:
         _attach_presampling(objective_and_grad, var_family, n_samples)
     return objective_and_grad
@@ -213,6 +243,7 @@ def _chivi(alpha, var_family, log_density, n_samples, presampled, neff):
 
     value_grad_and_log_norm.has_log_norm = True
     value_grad_and_log_norm.compute_log_weights = compute_log_weights
+    _attach_draws(value_grad_and_log_norm, var_family, n_samples)
     if presampled:
         _attach_presampling(value_grad_and_log_norm, var_family, n_samples)
     return value_grad_and_log_norm
@@ -275,4 +306,6 @@ def perturbed_black_box_vi(var_family, log_density, n_samples,
     objective_and_grad = _klvi_objective(objective, False, var_family,
                                          n_samples)
     objective_and_grad.perturbed_objective = perturbed_objective
+    # it draws its perturbation noise too: no base draws stand in for it
+    objective_and_grad.iteration_draws = None
     return objective_and_grad

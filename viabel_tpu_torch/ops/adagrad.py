@@ -29,8 +29,9 @@ import torch
 from . import _build
 from .lw_stats import check_tensor
 
-__all__ = ['AdagradState', 'new_state', 'adagrad_step', 'adagrad_step_plain',
-           'replay', 'launches', 'replayed', 'reset_launches']
+__all__ = ['AdagradState', 'new_state', 'restore_state', 'host_state',
+           'adagrad_step', 'adagrad_step_plain', 'replay', 'launches',
+           'replayed', 'reset_launches']
 
 launches = {'adagrad_step': 0}
 replayed = {'adagrad_step': 0}  # the part of `launches` that replays ran
@@ -89,6 +90,39 @@ def new_state(init_param, lr, window, epsilon, keep_history):
                 if keep_history else None),
         tail_sum=torch.zeros(batch + (P,), dtype=dtype, device=device),
         epsilon=float(epsilon), tail_start=3 * n_iters // 4)
+
+
+def restore_state(param, lr, window, epsilon, keep_history, i, grads,
+                  ring_log_norms, tail_sum):
+    """A single run's `AdagradState` at iteration `i`, made from host
+    arrays (a checkpoint's): `param` (P,), the ring `grads` (window, P)
+    and `ring_log_norms` (window,) in the JAX package's slot order (the
+    gradient of iteration j in slot ``j % window``, the kernel's order
+    too) and the running `tail_sum` (P,), all on `lr`'s device in
+    `param`'s dtype; ``counter = i``.  The histories are allocated for the
+    whole run and filled from iteration `i` on."""
+    device = lr.device
+    param = torch.as_tensor(param).to(device)
+    state = new_state(param, lr, window, epsilon, keep_history)
+    for name, value in (('grads', grads), ('ring_log_norms', ring_log_norms),
+                        ('tail_sum', tail_sum)):
+        getattr(state, name).copy_(torch.as_tensor(value))
+    state.counter.fill_(int(i))
+    return state
+
+
+def host_state(state):
+    """A single run's resumable state on the host, as numpy copies (never
+    views of the live state, on the CPU either): the counter ``i``,
+    ``param``, the ring ``grads`` and ``log_norms`` and the running
+    ``tail_sum`` (the arrays `restore_state` takes)."""
+    def host(t):
+        return t.to('cpu', copy=True).numpy()
+
+    return dict(i=int(state.counter[0]), param=host(state.param),
+                grads=host(state.grads),
+                log_norms=host(state.ring_log_norms),
+                tail_sum=host(state.tail_sum))
 
 
 def _runs(state):

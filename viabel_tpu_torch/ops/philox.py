@@ -25,12 +25,13 @@ import math
 import torch
 
 __all__ = ['philox4x32', 'uniform_from_bits', 'box_muller',
-           'philox_normal_plain', 'philox_seed', 'MAX_SEED']
+           'philox_normal_plain', 'philox_seed', 'fold_in', 'MAX_SEED']
 
 PHILOX_M = (0xD2511F53, 0xCD9E8D57)
 PHILOX_W = (0x9E3779B9, 0xBB67AE85)
 _MASK = 0xFFFFFFFF
 MAX_SEED = 2 ** 64 - 1
+_GOLDEN_GAMMA = 0x9E3779B97F4A7C15
 
 
 def _mulhilo(a, m):
@@ -104,3 +105,15 @@ def philox_seed(generator):
                            generator=generator,
                            device=generator.device).tolist()
     return (hi << 32) | lo
+
+
+def fold_in(seed, i):
+    """A 64-bit seed for item ``i`` of the stream that the 64-bit `seed`
+    names, the counterpart of ``jax.random.fold_in(key, i)``: splitmix64
+    (Steele, Lea & Flood 2014) of ``seed + (i + 1) * golden gamma``, so
+    distinct items of one seed, and the items of distinct seeds, get
+    well-mixed, distinct seeds."""
+    z = (seed + (i + 1) * _GOLDEN_GAMMA) & MAX_SEED
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & MAX_SEED
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & MAX_SEED
+    return z ^ (z >> 31)

@@ -16,20 +16,32 @@ learning rate a host float, nothing waiting for the device.  Their chains
 are a batch dimension: one batched step an iteration through
 ``torch.func.vmap`` of the objective's gradient, as the JAX package vmaps
 its scan.  The scan-unroll knob (`resolve_unroll`) tuned a
-TPU compiler and has no counterpart here.  The segmented, checkpointed and
-mesh-sharded chain runs come with a later slice.
+TPU compiler and has no counterpart here.
+
+An objective that samples inside its step (built with
+``presampled=False``) draws iteration i from a generator seeded with
+``ops.philox.fold_in(seed, i)``, the counterpart of the JAX package's
+``fold_in(key, i)``: the run's seed is drawn once from the caller's
+generator (each chain's from the chain's), so iteration i's draws depend
+on nothing before it, and a segmented or resumed run draws what the whole
+run drew.  Progress lines (``progress=True``) and the segmented chain runs
+with checkpoints (``checkpoint_path=``, `checkpoint.py`) follow the JAX
+package's; the mesh-sharded chain runs (``mesh=``) are not ported.
 """
+import os
+
+import numpy as np
 import torch
 
 from ._device import default_generator, resolve_device
 from .diagnostics import (compute_R_hat_adaptive, compute_R_hat_halfway,
                           stochastic_iterate_averaging)
-from .objectives import map_draws
+from .objectives import map_draws, stack_draws
 from .ops.adagrad import adagrad_step
 from .ops.adagrad import new_state as new_adagrad_state
 from .ops.adagrad import replay as adagrad_replay
 from .ops.gaussian_lw import philox_normal
-from .ops.philox import philox_seed
+from .ops.philox import fold_in, philox_seed
 
 __all__ = ['learning_rate_schedule', 'adagrad_optimize',
            'rmsprop_IA_optimize_with_rhat', 'adam_IA_optimize_with_rhat',
@@ -77,6 +89,41 @@ def _wrap_objective(objective_and_grad, has_log_norm):
     return obj
 
 
+class _IterationGenerator:
+    """The draws of a run whose objective samples inside its step:
+    iteration i's generator is one generator of `device` reseeded with
+    ``fold_in(seed, i)`` (``at(i)``)."""
+
+    def __init__(self, seed, device):
+        self.seed = seed
+        self.generator = torch.Generator(device=device)
+
+    def at(self, i):
+        return self.generator.manual_seed(fold_in(self.seed, i))
+
+
+def _progress_report(i, n_iters, value):
+    """Progress line after iteration `i` (viabel_tpu/optimizers.py:233-239,
+    the reference's running loss)."""
+    print('\r  iter {:>7d}/{} | loss = {:<12.6g}'.format(
+        int(i) + 1, int(n_iters), float(value)),
+        end='' if int(i) + 1 < int(n_iters) else '\n', flush=True)
+
+
+def _progress(n_iters, values):
+    """``report(i)``: the progress line after iteration i when i is one of
+    the JAX package's report points (every ``max(n_iters // 100, 1)``
+    iterations and the last), reading the loss from the device history
+    `values`.  It reads and writes nothing else."""
+    every = max(n_iters // 100, 1)
+
+    def report(i):
+        if i % every == 0 or i == n_iters - 1:
+            _progress_report(i, n_iters, values[i])
+
+    return report
+
+
 # iterations captured in one CUDA graph of the adagrad loop, chosen by
 # measurement (tools/graph_depth.py, PERF.md): at 2000 iterations one
 # iteration a graph ran fastest, since capturing an iteration costs the
@@ -96,41 +143,56 @@ def _draw_row(draws, counter, batched):
                      draws)
 
 
-def _adagrad_iteration(obj, state, source):
-    """One adagrad iteration on the device-side `state`
+def _draws_of(obj, state, source, i):
+    """The draws the objective takes at iteration `i`: for a presampled
+    objective the row of its block that the device counter names (so the
+    same call serves every iteration of a graph), for any other the
+    generator that `source` gives iteration `i`."""
+    if getattr(obj, 'presampled', False):
+        return _draw_row(source, state.counter, state.param.dim() == 2)
+    return source.at(i)
+
+
+def _adagrad_iteration(obj, state, source, i):
+    """Adagrad iteration `i` on the device-side `state`
     (`ops.adagrad.AdagradState`, one run or a batch): the objective's
     value and gradient at ``state.param``, cast to its dtype, then the step
-    kernel.  A presampled objective takes the row of its draws that the
-    device counter names; any other takes the generator `source`.  Nothing
-    in it waits for the device or decides on the host, so the same body
-    runs eagerly and under capture."""
-    xs = (_draw_row(source, state.counter, state.param.dim() == 2)
-          if getattr(obj, 'presampled', False) else source)
-    value, grad, log_norm = obj(state.param, xs)
+    kernel, which reads the iteration from the device counter.  Nothing in
+    it waits for the device or decides on the host, so the same body runs
+    eagerly and under capture."""
+    value, grad, log_norm = obj(state.param, _draws_of(obj, state, source, i))
     dtype = state.param.dtype
     adagrad_step(state, grad.to(dtype), value.to(dtype), log_norm.to(dtype))
 
 
-def _adagrad_eager(obj, state, source, iters):
-    """`iters` iterations of the body, one launch after another."""
-    for _ in range(iters):
-        _adagrad_iteration(obj, state, source)
+def _adagrad_eager(obj, state, source, start, iters, report=None):
+    """Iterations ``start .. start + iters - 1`` of the body, one launch
+    after another, each followed by ``report(i)`` when given."""
+    for i in range(start, start + iters):
+        _adagrad_iteration(obj, state, source, i)
+        if report is not None:
+            report(i)
 
 
-def _adagrad_graph(obj, state, source, iters, window):
-    """`iters` iterations of the body of a presampled objective on the
-    card: the first `window` eagerly on a side stream (real iterations,
-    which also warm up autograd's and the allocator's state and fill the
-    model's device data cache), then the body captured `_GRAPH_ITERS`
-    times in one CUDA graph and once in another, and those graphs replayed
-    until the run is done.  A failed capture raises."""
+def _adagrad_graph(obj, state, source, start, iters, window, report=None):
+    """Iterations ``start .. start + iters - 1`` of the body of a
+    presampled objective on the card: those before `window` eagerly on a
+    side stream (real iterations, which also warm up autograd's and the
+    allocator's state and fill the model's device data cache; a run that
+    starts past the window evaluates the objective once instead and
+    discards the result), then the body captured `_GRAPH_ITERS` times in
+    one CUDA graph and once in another, and those graphs replayed until the
+    iterations are done, ``report(i)`` after each.  A failed capture
+    raises."""
     device = state.param.device
     main = torch.cuda.current_stream(device)
     side = torch.cuda.Stream(device)
     side.wait_stream(main)
-    warm = min(window, iters)
+    warm = min(max(window - start, 0), iters)
     with torch.cuda.stream(side):
-        _adagrad_eager(obj, state, source, warm)
+        _adagrad_eager(obj, state, source, start, warm, report)
+        if warm == 0 and iters:
+            obj(state.param, _draws_of(obj, state, source, start))
     full, rest = divmod(iters - warm, _GRAPH_ITERS)
     graphs = []
     for count, steps in ((full, _GRAPH_ITERS), (rest, 1)):
@@ -139,14 +201,19 @@ def _adagrad_graph(obj, state, source, iters, window):
             with torch.cuda.stream(side):
                 graph.capture_begin()
                 try:
-                    _adagrad_eager(obj, state, source, steps)
+                    _adagrad_eager(obj, state, source, 0, steps)
                 finally:
                     graph.capture_end()
             graphs.append((graph, steps, count))
     main.wait_stream(side)
+    i = start + warm
     for graph, steps, count in graphs:
         for _ in range(count):
             adagrad_replay(graph, steps)
+            if report is not None:
+                for j in range(i, i + steps):
+                    report(j)
+            i += steps
 
 
 def _learning_rates(n_iters, learning_rate, learning_rate_end, dtype):
@@ -159,10 +226,13 @@ def _learning_rates(n_iters, learning_rate, learning_rate_end, dtype):
                         dtype=torch.float64).to(dtype)
 
 
-def _drive(obj, state, draws, n_iters, window, driver):
-    """Run `state` (one run or a batch) through `n_iters` iterations of
-    the body, by the driver that the objective's type and the device pick
-    (see `_adagrad_run`), and check that every iteration ran."""
+def _advance(obj, state, source, start, iters, window, driver=None,
+             report=None):
+    """Run `state` (one run or a batch, at iteration `start`) through
+    iterations ``start .. start + iters - 1`` of the body, by the driver
+    that the objective's type and the device pick (see `_adagrad_run`),
+    and check that every iteration ran.  `source` is a presampled
+    objective's whole-run block of draws, or an `_IterationGenerator`."""
     presampled = getattr(obj, 'presampled', False)
     on_card = state.param.device.type == 'cuda'
     if driver is None:
@@ -173,35 +243,56 @@ def _drive(obj, state, draws, n_iters, window, driver):
     if driver not in ('eager', 'graph'):
         raise ValueError('driver must be None, "eager" or "graph"')
     if driver == 'graph':
-        _adagrad_graph(obj, state, draws, n_iters, window)
+        _adagrad_graph(obj, state, source, start, iters, window, report)
     else:
-        _adagrad_eager(obj, state, draws, n_iters)
-    if int(state.counter[0]) != n_iters:
+        _adagrad_eager(obj, state, source, start, iters, report)
+    if int(state.counter[0]) != start + iters:
         raise RuntimeError('the adagrad run stopped at iteration {} of {}'
-                           .format(int(state.counter[0]), n_iters))
+                           .format(int(state.counter[0]), start + iters))
+
+
+def _source(draws, device):
+    """A presampled block passes through; a generator becomes the run's
+    `_IterationGenerator`, its seed drawn once from the generator."""
+    if isinstance(draws, torch.Generator):
+        return _IterationGenerator(philox_seed(draws), device)
+    return draws
+
+
+def _drive(obj, state, draws, n_iters, window, driver, progress=False):
+    """Run `state` (one run or a batch) through its `n_iters` iterations
+    (`_advance`) from `draws` (a presampled block, or a generator), with
+    the progress lines when `progress`; returns ``(values, log_norms,
+    params, tail_mean)``."""
+    report = _progress(n_iters, state.values) if progress else None
+    _advance(obj, state, _source(draws, state.param.device), 0, n_iters,
+             window, driver, report)
     tail_mean = state.tail_sum / (n_iters - state.tail_start)
     return state.values, state.log_norms, state.params, tail_mean
 
 
 def _adagrad_run(obj, n_iters, window, learning_rate, epsilon,
                  learning_rate_end, init_param, draws, keep_history=True,
-                 driver=None):
+                 driver=None, progress=False):
     """The whole adagrad run (viabel_tpu/optimizers.py:201-230, 241-303).
 
     `draws` is the ``(n_iters, n_mc, d)`` block of base draws for a
     presampled objective (row ``i`` feeds iteration ``i``; a dict of such
     blocks for a family with dict draws), or a `torch.Generator` for an
-    objective that samples itself.  The state of the run lives on the
-    device (`ops.adagrad.AdagradState`) and one body
-    (`_adagrad_iteration`) runs every iteration.  The driver is chosen by
-    the objective's type and the device: a presampled objective on the card
-    runs as a replayed CUDA graph (`_adagrad_graph`); an objective that
-    samples from a generator, and any run on the CPU (with the plain step),
-    run eagerly.  ``driver='eager'`` or ``'graph'`` names one instead (to
-    compare the two); the graph takes presampled objectives on the card
-    only.  The tail-quarter running sum is accumulated in both history
+    objective that samples itself (iteration i then draws from
+    ``fold_in(seed, i)``, the seed drawn once from the generator).  The
+    state of the run lives on the device (`ops.adagrad.AdagradState`) and
+    one body (`_adagrad_iteration`) runs every iteration.  The driver is
+    chosen by the objective's type and the device: a presampled objective
+    on the card runs as a replayed CUDA graph (`_adagrad_graph`); an
+    objective that samples from a generator, and any run on the CPU (with
+    the plain step), run eagerly.  ``driver='eager'`` or ``'graph'`` names
+    one instead (to compare the two); the graph takes presampled objectives
+    on the card only.  The tail-quarter running sum is accumulated in both history
     modes, so the averaged parameter is the same whether or not the
-    history is kept.
+    history is kept.  ``progress=True`` prints the JAX package's progress
+    lines (`_progress`): the graph then stops for one host read at each
+    report point, and no result changes.
 
     Returns ``(values, log_norms, params, tail_mean)``; ``params`` is the
     ``(n_iters, P)`` iterate history, or None with ``keep_history=False``.
@@ -210,7 +301,7 @@ def _adagrad_run(obj, n_iters, window, learning_rate, epsilon,
         init_param, _learning_rates(n_iters, learning_rate,
                                     learning_rate_end, init_param.dtype),
         window, epsilon, keep_history)
-    return _drive(obj, state, draws, n_iters, window, driver)
+    return _drive(obj, state, draws, n_iters, window, driver, progress)
 
 
 def _adagrad_runs(objective_and_grad, has_log_norm, n_iters, window,
@@ -228,8 +319,9 @@ def _adagrad_runs(objective_and_grad, has_log_norm, n_iters, window,
     that `_adagrad_run` drives: a replayed CUDA graph on the card, eagerly
     on the CPU.  An objective that samples from a generator cannot be
     vmapped: `draws` is then a list of K generators and the runs go one
-    after another, eagerly.  Returns ``(values (K, n_iters), log_norms
-    (K, n_iters), params (K, n_iters, P) or None, tail_means (K, P))``.
+    after another, eagerly, each as `_adagrad_run` would run it.  Returns
+    ``(values (K, n_iters), log_norms (K, n_iters), params (K, n_iters,
+    P) or None, tail_means (K, P))``.
     """
     if not getattr(objective_and_grad, 'presampled', False):
         obj = _wrap_objective(objective_and_grad, has_log_norm)
@@ -245,10 +337,24 @@ def _adagrad_runs(objective_and_grad, has_log_norm, n_iters, window,
     return _drive(step, state, draws, n_iters, window, driver)
 
 
+def _run_draws(objective_and_grad, obj, generator, n_iters, dtype, draws):
+    """What a single adagrad run draws from: a presampled objective's
+    ``(n_iters, n_mc, ...)`` block (`draws`, or drawn from `generator`),
+    or for any other objective the generator itself."""
+    if not obj.presampled:
+        if draws is not None:
+            raise ValueError('draws= feeds a presampled objective only')
+        return generator
+    if draws is None:
+        return objective_and_grad.make_draws(generator, n_iters, dtype)
+    return draws
+
+
 def adagrad_optimize(n_iters, objective_and_grad, init_param, *,
                      generator=None, has_log_norm=None, window=10,
                      learning_rate=.01, epsilon=.1, learning_rate_end=None,
-                     return_history=True, device=None, draws=None):
+                     progress=False, return_history=True, device=None,
+                     draws=None):
     """Windowed adagrad with min-log-norm gradient rescaling and
     tail-quarter iterate averaging (viabel_tpu/optimizers.py:306-349).
 
@@ -258,23 +364,21 @@ def adagrad_optimize(n_iters, objective_and_grad, init_param, *,
     ``return_history=False``.  Runs on `device` (None: the CUDA card);
     `generator` defaults to seed 0 on that device.  A presampled objective
     draws its ``(n_iters, n_mc, d)`` block from `generator`, or takes it
-    as `draws` (e.g. `interop.presampled_draws` of the JAX package's).
+    as `draws` (e.g. `interop.presampled_draws` of the JAX package's); any
+    other draws iteration i from ``fold_in(seed, i)``, its seed drawn once
+    from `generator`.  ``progress=True`` prints a progress line every
+    ``max(n_iters // 100, 1)`` iterations and at the last.
     """
     device = resolve_device(device)
     if generator is None:
         generator = default_generator(device)
     obj = _wrap_objective(objective_and_grad, has_log_norm)
     init_param = torch.as_tensor(init_param, device=device)
-    if not obj.presampled:
-        if draws is not None:
-            raise ValueError('draws= feeds a presampled objective only')
-        draws = generator
-    elif draws is None:
-        draws = objective_and_grad.make_draws(generator, n_iters,
-                                              init_param.dtype)
+    draws = _run_draws(objective_and_grad, obj, generator, n_iters,
+                       init_param.dtype, draws)
     values, log_norms, params, tail_mean = _adagrad_run(
         obj, n_iters, window, learning_rate, epsilon, learning_rate_end,
-        init_param, draws, keep_history=return_history)
+        init_param, draws, keep_history=return_history, progress=progress)
     tail = params[3 * n_iters // 4:] if return_history else None
     return tail_mean, tail, values, log_norms
 
@@ -348,41 +452,63 @@ def _chain_step(kind, i, n_iters, learning_rate, epsilon, learning_rate_end,
 
 def _chain_xs(obj, chain_generators, i0, length, dtype):
     """The presampled draws of iterations ``[i0, i0 + length)`` for every
-    chain, ``(n_chains, length, n_mc, d)``: one block per chain from its
-    generator (viabel_tpu/optimizers.py:420-426)."""
-    return torch.stack([obj.make_draws_range(g, i0, length, dtype)
+    chain, ``(n_chains, length, n_mc, ...)`` (a dict of such blocks for
+    dict draws): one block per chain from its generator
+    (viabel_tpu/optimizers.py:420-426)."""
+    return stack_draws([obj.make_draws_range(g, i0, length, dtype)
                         for g in chain_generators])
 
 
-def _chains_run(step, kind, n_iters, learning_rate, epsilon,
-                learning_rate_end, inits, draws, hist_cap=None,
-                avg_start=None):
-    """Every chain's run, one batched step an iteration
-    (viabel_tpu/optimizers.py:429-487).
+def _generator_draws(obj, chain_seeds, device, dtype):
+    """``draw(i)``: every chain's base draws of iteration i for an
+    objective that samples inside its step, chain c's from
+    ``fold_in(chain_seeds[c], i)`` (the JAX package's ``fold_in(chain_key_c,
+    i)``), stacked to ``(n_chains, n_mc, ...)`` for the batched step."""
+    generators = [_IterationGenerator(s, device) for s in chain_seeds]
 
-    `step` is `_batched_step`'s function, `inits` the ``(C, P)`` chain
-    inits and `draws` the ``(C, n_iters, n_mc, d)`` presampled block.  The
-    history entry of iteration i is the *pre-update* parameter.  With
-    `hist_cap` below `n_iters` the history is a ``(C, hist_cap, P)`` ring
-    buffer, returned in chronological order.  With `avg_start` an online
-    running mean of the post-update parameters over iterations
-    ``i > avg_start`` is kept.  Returns ``((values, log_norms, chains),
-    final_params, avg_params)``.
+    def draw(i):
+        return stack_draws([obj.iteration_draws(g.at(i), dtype)
+                            for g in generators])
+
+    return draw
+
+
+def _rows(draws):
+    """``draw(i)`` of a ``(n_chains, n_iters, ...)`` block of draws (or a
+    dict of blocks): its iteration-i rows; a callable passes through."""
+    if callable(draws):
+        return draws
+    return lambda i: map_draws(lambda v: v[:, i], draws)
+
+
+def _chains_segment(step, kind, n_iters, learning_rate, epsilon,
+                    learning_rate_end, avg_start, cap, i0, length, carry,
+                    draws):
+    """Iterations ``[i0, i0 + length)`` of every chain, one batched step an
+    iteration (viabel_tpu/optimizers.py:364-417, 490-511).
+
+    `carry` is ``(params, v, m, avg)``, each ``(C, P)``, and is not written
+    to.  The history entry of iteration i is the *pre-update* parameter;
+    with `avg_start` an online running mean of the post-update parameters
+    over iterations ``i > avg_start`` is kept.  Returns the new carry and
+    ``(values (C, length), log_norms (C, length), hist)``, `hist` the last
+    ``min(length, cap)`` history entries in chronological order (a ring
+    buffer of that size while the segment runs).
     """
-    C, P = inits.shape
-    dtype, device = inits.dtype, inits.device
-    kept = hist_cap if hist_cap is not None and hist_cap < n_iters \
-        else n_iters
-    chains = torch.empty((C, kept, P), dtype=dtype, device=device)
-    values = torch.empty((C, n_iters), dtype=dtype, device=device)
-    log_norms = torch.empty((C, n_iters), dtype=dtype, device=device)
-    param = inits.clone()
-    v = m = avg = torch.zeros_like(param)
-    for i in range(n_iters):
-        value, grad, log_norm = step(param, draws[:, i])
-        chains[:, i % kept] = param
-        values[:, i] = value
-        log_norms[:, i] = log_norm
+    param, v, m, avg = carry
+    C, P = param.shape
+    dtype, device = param.dtype, param.device
+    draw = _rows(draws)
+    kept = min(length, cap)
+    hist = torch.empty((C, kept, P), dtype=dtype, device=device)
+    values = torch.empty((C, length), dtype=dtype, device=device)
+    log_norms = torch.empty((C, length), dtype=dtype, device=device)
+    for j in range(length):
+        i = i0 + j
+        value, grad, log_norm = step(param, draw(i))
+        hist[:, j % kept] = param
+        values[:, j] = value
+        log_norms[:, j] = log_norm
         new_param, v, m = _chain_step(
             kind, i, n_iters, learning_rate, epsilon, learning_rate_end,
             param, grad.to(dtype), v, m)
@@ -390,9 +516,144 @@ def _chains_run(step, kind, n_iters, learning_rate, epsilon,
             avg = (avg + (new_param - avg) / max(i - avg_start, 1)
                    if i > avg_start else new_param)
         param = new_param
-    if kept < n_iters:
-        chains = torch.roll(chains, -(n_iters % kept), dims=1)
+    if kept < length:
+        hist = torch.roll(hist, -(length % kept), dims=1)
+    return (param, v, m, avg), (values, log_norms, hist)
+
+
+def _chains_run(step, kind, n_iters, learning_rate, epsilon,
+                learning_rate_end, inits, draws, hist_cap=None,
+                avg_start=None):
+    """Every chain's whole run, one segment of `n_iters`
+    (viabel_tpu/optimizers.py:429-487).
+
+    `step` is `_batched_step`'s function, `inits` the ``(C, P)`` chain
+    inits and `draws` the ``(C, n_iters, n_mc, ...)`` block of draws (the
+    presampled block, or injected draws) or ``draw(i)``, a function of the
+    iteration (`_generator_draws`).  With `hist_cap` below `n_iters` the
+    history keeps the last `hist_cap` entries (a ring buffer), in
+    chronological order.  Returns ``((values, log_norms, chains),
+    final_params, avg_params)``.
+    """
+    cap = min(hist_cap, n_iters) if hist_cap is not None else n_iters
+    zeros = torch.zeros_like(inits)
+    (param, _, _, avg), (values, log_norms, chains) = _chains_segment(
+        step, kind, n_iters, learning_rate, epsilon, learning_rate_end,
+        avg_start, cap, 0, n_iters, (inits, zeros, zeros, zeros), draws)
     return (values, log_norms, chains), param, avg
+
+
+def _segment_progress(i_done, n_iters, tail_values):
+    """Running-average-loss progress line after a segment
+    (viabel_tpu/optimizers.py:559-567); `tail_values` holds the trailing
+    ~1000 iterations' losses of every chain."""
+    avg_loss = float(np.mean(tail_values))
+    print('\r  iter {:>7d}/{} | average loss = {:<12,.6g}'.format(
+        i_done, n_iters, avg_loss),
+        end='' if i_done < n_iters else '\n', flush=True)
+
+
+def _chains_run_segmented(step, kind, n_iters, learning_rate, epsilon,
+                          learning_rate_end, inits, draws, keys, hist_cap,
+                          avg_start, save_every, checkpoint_path, progress):
+    """The chains run in `save_every`-iteration segments, with progress
+    lines, checkpoint and resume, and partial results on an interrupt
+    (viabel_tpu/optimizers.py:570-718).
+
+    Each segment is `_chains_segment` over the same draws as the whole run
+    (`draws` as in `_chains_run`: a presampled block is drawn for the
+    whole run and a segment reads its rows), so a segmented run equals the
+    whole run.  After each segment the host state (the histories, and with
+    a checkpoint the carry) is brought up to date, checkpointed to
+    `checkpoint_path` (resumed from it when it exists, after
+    `checkpoint._validate_resume` of its shapes, `keys` and
+    hyperparameters) and a progress line printed when `progress`.  A
+    KeyboardInterrupt between segments returns what is done; one before
+    the first segment completes is raised again.
+
+    `keys` is the ``(C, nbytes)`` uint8 stack of the chain generators'
+    states at the start of the call (``get_state()``), the checkpoint's
+    ``keys`` entry.  Returns ``((values, log_norms, chains), final_params,
+    avg_params, i_done)`` as numpy arrays, histories truncated to the
+    `i_done` completed iterations.
+    """
+    from .checkpoint import (FORMAT_CHAINS, _load_resume_state,
+                             _validate_resume, save_checkpoint)
+    n_chains, P = inits.shape
+    device = inits.device
+    np_dtype = torch.empty((), dtype=inits.dtype).numpy().dtype
+    cap = min(hist_cap, n_iters) if hist_cap is not None else n_iters
+    template = dict(
+        format=np.asarray(FORMAT_CHAINS),
+        i=np.zeros((), np.int64),
+        keys=np.asarray(keys),
+        params=np.zeros((n_chains, P), np_dtype),
+        v=np.zeros((n_chains, P), np_dtype),
+        m=np.zeros((n_chains, P), np_dtype),
+        avg=np.zeros((n_chains, P), np_dtype),
+        values=np.zeros((n_chains, n_iters), np_dtype),
+        lns=np.zeros((n_chains, n_iters), np_dtype),
+        hist=np.zeros((n_chains, cap, P), np_dtype),
+        kind=np.asarray(str(kind)),
+        learning_rate=np.asarray(float(learning_rate)),
+        epsilon=np.asarray(float(epsilon)),
+        learning_rate_end=np.asarray(
+            np.nan if learning_rate_end is None else float(
+                learning_rate_end)),
+        avg_start=np.asarray(-1 if avg_start is None else int(avg_start),
+                             np.int64),
+    )
+    if checkpoint_path is not None and os.path.exists(checkpoint_path):
+        state = _load_resume_state(checkpoint_path, template)
+        _validate_resume(state, template, checkpoint_path, 'keys',
+                         value_entries=('format', 'kind', 'learning_rate',
+                                        'epsilon', 'learning_rate_end',
+                                        'avg_start'))
+        start = int(state['i'])
+    else:
+        state = template
+        state['params'] = inits.cpu().numpy()
+        start = 0
+    carry = tuple(torch.as_tensor(state[name]).to(device)
+                  for name in ('params', 'v', 'm', 'avg'))
+
+    i = start
+    try:
+        while i < n_iters:
+            length = min(save_every, n_iters - i)
+            carry, (vals, lns, hist_seg) = _chains_segment(
+                step, kind, n_iters, learning_rate, epsilon,
+                learning_rate_end, avg_start, cap, i, length, carry, draws)
+            state['values'][:, i:i + length] = vals.cpu().numpy()
+            state['lns'][:, i:i + length] = lns.cpu().numpy()
+            # the segment's last min(length, cap) entries, ring-written
+            # into the capped host history
+            keep = hist_seg.shape[1]
+            slots = np.arange(i + length - keep, i + length) % cap
+            state['hist'][:, slots] = hist_seg.cpu().numpy()
+            i += length
+            state['i'] = np.asarray(i)
+            if checkpoint_path is not None:
+                for name, t in zip(('params', 'v', 'm', 'avg'), carry):
+                    state[name] = t.cpu().numpy()
+                save_checkpoint(checkpoint_path, state)
+            if progress:
+                _segment_progress(
+                    i, n_iters, state['values'][:, max(i - 1000, 0):i])
+    except KeyboardInterrupt:
+        if progress:
+            print()
+        if i == 0:
+            # no completed segment: nothing to return, and an empty history
+            # would fail the R-hat post-pass
+            raise
+
+    i_done = i
+    kept = min(i_done, cap)
+    order = (i_done - kept + np.arange(kept)) % cap
+    return ((state['values'][:, :i_done], state['lns'][:, :i_done],
+             state['hist'][:, order]),
+            carry[0].cpu().numpy(), carry[3].cpu().numpy(), i_done)
 
 
 def _ia_postprocess(K, chains, values, log_norms, rhat_window,
@@ -447,20 +708,19 @@ def _ia_optimize(kind, perturb_scale, n_iters, objective_and_grad,
                  tail_avg_iters, learning_rate_end, mesh, checkpoint_path,
                  save_every, progress, device):
     """The body shared by the RMSProp-IA and Adam-IA optimizers
-    (viabel_tpu/optimizers.py:792-842)."""
-    for name, value in (('mesh', mesh), ('checkpoint_path', checkpoint_path),
-                        ('save_every', save_every)):
-        if value is not None:
-            raise NotImplementedError(
-                '{}= is not ported yet: segmented, checkpointed and sharded '
-                'chain runs come with a later slice'.format(name))
-    if progress:
-        raise NotImplementedError('progress=True is not ported yet')
-    if not getattr(objective_and_grad, 'presampled', False):
+    (viabel_tpu/optimizers.py:792-842): segmented (`_chains_run_segmented`)
+    when `checkpoint_path` or `progress` is set, else one segment."""
+    if mesh is not None:
         raise NotImplementedError(
-            'the IA optimizers take a presampled objective '
-            '(black_box_klvi(..., presampled=True)); objectives that draw '
-            'from a generator inside the step are not ported yet')
+            'mesh= is not ported yet: the mesh-sharded chain runs come with '
+            'the port of parallel/')
+    presampled = getattr(objective_and_grad, 'presampled', False)
+    if not presampled and getattr(objective_and_grad, 'iteration_draws',
+                                  None) is None:
+        raise NotImplementedError(
+            'the IA optimizers take the port\'s objectives: presampled, or '
+            'sampling inside the step with `iteration_draws` (a '
+            'perturbed objective has none)')
     step = _batched_step(objective_and_grad, has_log_norm)
     device = resolve_device(device)
     if generator is None:
@@ -475,25 +735,38 @@ def _ia_optimize(kind, perturb_scale, n_iters, objective_and_grad,
     inits = _perturbed_inits(init_param, n_optimisers, perturb_scale, noise)
     chain_generators = [torch.Generator(device=device).manual_seed(s)
                         for s in chain_seeds]
-    draws = _chain_xs(objective_and_grad, chain_generators, 0, n_iters,
-                      dtype)
+    if presampled:
+        draws = _chain_xs(objective_and_grad, chain_generators, 0, n_iters,
+                          dtype)
+    else:
+        draws = _generator_draws(objective_and_grad, chain_seeds, device,
+                                 dtype)
     # history cap: at most 100 * window iterates a chain; online tail
     # average from n_iters // 1.3 (viabel_tpu/optimizers.py:812-817)
     hist_cap = 100 * window if window is not None else None
     avg_start = int(n_iters // 1.3) if averaging else None
-    (values, log_norms, chains), final_params, avg_params = _chains_run(
-        step, kind, n_iters, learning_rate, epsilon, learning_rate_end,
-        inits, draws, hist_cap, avg_start)
+    if checkpoint_path is not None or progress:
+        keys = np.stack([g.get_state().numpy() for g in chain_generators])
+        (values, log_norms, chains), final_params, avg_params, _ = \
+            _chains_run_segmented(
+                step, kind, n_iters, learning_rate, epsilon,
+                learning_rate_end, inits, draws, keys, hist_cap, avg_start,
+                save_every, checkpoint_path, progress)
+    else:
+        (values, log_norms, chains), final_params, avg_params = _chains_run(
+            step, kind, n_iters, learning_rate, epsilon, learning_rate_end,
+            inits, draws, hist_cap, avg_start)
+        values, log_norms, chains, final_params, avg_params = (
+            t.cpu().numpy() for t in (values, log_norms, chains,
+                                      final_params, avg_params))
     (avg_means, avg_sigmas, value_history, log_norm_history,
      optimisation_log, host_chains) = _ia_postprocess(
-        K, chains.cpu().numpy(), values.cpu().numpy(),
-        log_norms.cpu().numpy(), rhat_window, r_mean_threshold,
+        K, chains, values, log_norms, rhat_window, r_mean_threshold,
         r_sigma_threshold, tail_avg_iters)
     if averaging:
-        optimisation_log['averaged_variational_param'] = \
-            avg_params.cpu().numpy()
-    return (final_params[-1].cpu().numpy(), host_chains, avg_means,
-            avg_sigmas, value_history, log_norm_history, optimisation_log)
+        optimisation_log['averaged_variational_param'] = avg_params
+    return (final_params[-1], host_chains, avg_means, avg_sigmas,
+            value_history, log_norm_history, optimisation_log)
 
 
 def rmsprop_IA_optimize_with_rhat(n_iters, objective_and_grad, init_param, K,
@@ -504,7 +777,7 @@ def rmsprop_IA_optimize_with_rhat(n_iters, objective_and_grad, init_param, K,
                                   r_mean_threshold=1.15,
                                   r_sigma_threshold=1.20, tail_avg_iters=2000,
                                   learning_rate_end=None, mesh=None,
-                                  checkpoint_path=None, save_every=None,
+                                  checkpoint_path=None, save_every=1000,
                                   progress=False, device=None):
     """RMSProp with R-hat-gated iterate averaging over parallel chains
     (viabel_tpu/optimizers.py:845-900).
@@ -517,12 +790,22 @@ def rmsprop_IA_optimize_with_rhat(n_iters, objective_and_grad, init_param, K,
     parameters from iteration ``n_iters // 1.3`` is kept and returned as
     ``optimisation_log['averaged_variational_param']`` ``(n_chains, P)``.
 
-    `objective_and_grad` must be presampled; chain o's draws are
-    ``make_draws_range`` of a generator seeded from `generator` (default:
-    seed 0 on `device`), so a Gaussian family's chains draw the same
-    Philox rows on the CPU and on the card.  Runs on `device` (None: the
-    CUDA card).  `mesh`, `checkpoint_path`, `save_every` and `progress`
-    raise NotImplementedError.
+    From `generator` (default: seed 0 on `device`) come a seed for the
+    init noise and one for each chain.  A presampled objective's chain o
+    draws ``make_draws_range`` of a generator of its seed for the whole
+    run (a Gaussian family's chains draw the same Philox rows on the CPU
+    and on the card); an objective that samples inside its step draws
+    chain o's iteration i from ``fold_in(seed_o, i)``, all chains in one
+    batched step.  Runs on `device` (None: the CUDA card).
+
+    With `checkpoint_path` and/or ``progress=True`` the run goes in
+    `save_every`-iteration segments (`_chains_run_segmented`): the state
+    is checkpointed after each (and resumed from `checkpoint_path` when it
+    exists; the checkpoint's ``keys`` entry holds the chain generators'
+    states at the start, and a checkpoint of another seed, shape or
+    hyperparameter is refused), a running-average-loss line is printed,
+    and a KeyboardInterrupt returns the histories so far.  A segmented run
+    equals the whole run.  ``mesh=`` raises NotImplementedError.
 
     Returns the JAX package's 7-tuple of host numpy arrays:
     ``(variational_param, chains, averaged_means_list,
@@ -545,7 +828,8 @@ def adam_IA_optimize_with_rhat(n_iters, objective_and_grad, init_param, K,
                                r_mean_threshold=1.15, r_sigma_threshold=1.20,
                                tail_avg_iters=2000, learning_rate_end=None,
                                mesh=None, checkpoint_path=None,
-                               save_every=None, progress=False, device=None):
+                               save_every=1000, progress=False,
+                               device=None):
     """Adam with R-hat-gated iterate averaging over parallel chains
     (viabel_tpu/optimizers.py:903-932): moments with beta1 = 0.9,
     beta2 = 0.999, initialized at ``0.9 g`` / ``0.9 g^2`` and

@@ -28,7 +28,7 @@ from .bounds import (STAT_KEYS, divergence_bound, error_bounds,
                      wasserstein_bounds)
 from .experiments import draw_and_score
 from .families import NoClosedFormMomentError
-from .objectives import black_box_klvi, map_draws
+from .objectives import black_box_klvi, map_draws, stack_draws
 from .ops.gaussian_lw import philox_normal
 from .ops.philox import philox_seed
 from .optimizers import (_adagrad_run, _adagrad_runs, _learning_rates,
@@ -268,12 +268,6 @@ def _finalize_batch(out, n_bound_samples, alpha, log_norm_bound):
     return out
 
 
-def _stack_draws(blocks):
-    if isinstance(blocks[0], dict):
-        return {k: torch.stack([b[k] for b in blocks]) for k in blocks[0]}
-    return torch.stack(blocks)
-
-
 def validated_vi_multistart(log_density, var_family, init_param, n_iters, *,
                             n_starts=4, perturb_scale=0.5, init_params=None,
                             objective_and_grad=None, n_mc_samples=100,
@@ -317,11 +311,11 @@ def validated_vi_multistart(log_density, var_family, init_param, n_iters, *,
     generators = [torch.Generator(device=device).manual_seed(
         philox_seed(generator)) for _ in range(n_starts)]
     presampled = getattr(objective_and_grad, 'presampled', False)
-    opt_draws = (_stack_draws([objective_and_grad.make_draws(g, n_iters,
+    opt_draws = (stack_draws([objective_and_grad.make_draws(g, n_iters,
                                                              dtype)
                                for g in generators])
                  if presampled else generators)
-    bound_draws = _stack_draws([var_family.base_sample(g, n_bound_samples,
+    bound_draws = stack_draws([var_family.base_sample(g, n_bound_samples,
                                                        dtype)
                                 for g in generators])
     lr_tables = _learning_rates(n_iters, learning_rate, learning_rate_end,

@@ -151,11 +151,42 @@ result line:
     protocol in its quick mode (CP 2250 and NCP 2750 iterations of 9000
     and 11000; 2 RMSProp-IA chains, mean-field Gaussian KLVI n_mc 100
     sampling inside the step), the averaging starts inside the history and
-    the final-window R-hat maxima finite.
+    the final-window R-hat maxima finite;
+18. the HTTP service (``viabel_tpu_torch.serve``) in this process on
+    127.0.0.1, port 0, float32, each part with every launch count set to 0
+    just before it and read just after: served from the default config's
+    fit (``_fit_from_config``: funnel, mf-t(40), presampled KLVI, adagrad
+    5000 iterations; nothing cut); /health, /moments, /sample?n=1000,
+    /log_prob of 1000 points and /bounds?n=1e6 (bounds and khat finite; K1
+    and the combine launched); /fit of 5000 iterations and 1e6 bound
+    samples (the step kernel once an iteration, replayed after the window;
+    K1 and the combine), and with 4 starts (the batched step once a
+    batched iteration); a second /fit while one runs (503); a thread of
+    /sample calls during a /fit (every call succeeds, one before the fit
+    ends, and the fit's bounds equal the same fit's with no readers to
+    1e-6 relative); each endpoint's latency, the median of 20 calls;
+19. external and native densities on the card, float64, counted the same
+    way: ``validated_vi`` (mf-t(40), presampled KLVI n_mc 100, 2000
+    iterations, 1e6 bound samples) on the native C++ robust regression and
+    on the torch model with the same generator (fit, d2 and khat to 1e-9
+    relative); the native run takes the eager driver (the step once an
+    iteration, 0 replays), K3 and the combine and no K1; both walls and
+    the native run's share of host time; then RMSProp-IA (2 chains, 300
+    iterations) on the native eight-schools CP under vmap against the
+    torch CP model (1e-9 relative);
+20. HMC on the card: ``hmc_ground_truth`` on eight-schools NCP mapped to
+    the CP scale (examples/eight_schools.py ``--hmc``: 8 chains, n_warmup
+    1000; n_samples cut from 20000 to 4000), float32, each transition a
+    replayed CUDA graph: max split R-hat < 1.01, the mean within 0.2 and
+    the stdevs within 6 % of the stored CP truth (tests/test_mcmc.py:86-89);
+    transitions a second, replays against transitions, and the card's busy
+    share over 500 sampling transitions; then 50 transitions through the
+    graph and through the eager body on the same draws, float64, adaptive
+    and sampling (1e-10 relative).
 
 The line before the last is a JSON object with one entry per kernel:
 route, source, the TPU kernel it replaces, launches on the paths of phases
-2, 6, 10, 13, 14, 15 and 17 (summed), the float32 max abs error, its time by
+2, 6, 10, 13, 14, 15, 17, 18 and 19 (summed), the float32 max abs error, its time by
 events around the call (``ms``) and on the card (``device_ms``), the plain
 version's time, its bound (the larger of bytes over 3.35 TB/s and
 operations over 67 TFLOP/s float32, H100 SXM data-sheet peaks; integer
@@ -247,6 +278,15 @@ CLI_SAVE_EVERY = 1000  # the resumable drivers' default, which run uses
 ES_IA = (('eight-schools CP', 'eight_schools_cp_model', 9000 // 4, 1.20, 0),
          ('eight-schools NCP', 'eight_schools_ncp_model', 11000 // 4, 1.15,
           1))
+# phase 18: the service from the default config; each /fit 5000
+# iterations with 1e6 bound samples (a start)
+SERVE_BOUND = 1_000_000
+SERVE_FIT = dict(n_iters=5000, n_bound_samples=SERVE_BOUND)
+# phase 19: the native densities, validated_vi and the IA chains
+NATIVE_ITERS, NATIVE_BOUND, NATIVE_IA_ITERS = 2000, 1_000_000, 300
+# phase 20: examples/eight_schools.py --hmc's protocol (8 chains, n_warmup
+# 1000), n_samples cut from 20000 to 4000; 50 transitions graph vs eager
+HMC_CHAINS, HMC_WARMUP, HMC_SAMPLES, HMC_COMPARE = 8, 1000, 4000, 50
 
 
 def ops_k2(d, n_rows):
@@ -305,6 +345,15 @@ RANDN_KEY = 'distribution_elementwise'  # torch.randn's kernel, in a trace
 
 def log(msg):
     print(msg, flush=True)
+
+
+_START = time.perf_counter()
+
+
+def phases_done(phases):
+    """Log the host seconds since the script started, after `phases`."""
+    log('-- phases {} done at {:.1f} s'.format(phases,
+                                                time.perf_counter() - _START))
 
 
 def card_line():
@@ -853,7 +902,8 @@ def step_kernel_check(vt, model, fam):
         lambda: aops.adagrad_step_plain(state, grad, value, log_norm))
     log('adagrad_step_plain: {} kernels a step on the card (the eager step '
         'it replaces launched ~17, and decided slot, fill, rate and tail on '
-        'the host)'.format(plain_kernels))
+        'the host)'.format('not measured' if plain_kernels is None
+                           else plain_kernels))
     return timed_row(
         'adagrad_step', lambda: aops.adagrad_step(state, grad, value,
                                                   log_norm),
@@ -903,29 +953,46 @@ def time_breakdown(vt, model, fam, opt):
                 rates['eager'][0], rates['eager'][1]))
         n_prof = 500
         for driver in ('graph', 'eager'):
-            busy_s, launches, t_prof = profile_busy(
-                lambda: adagrad_run(inputs, n_prof, driver))
-            log('  {} under the profiler ({}, {} iters): wall {:.3f} s, '
-                'device busy {:.4f} s ({:.1f} %), {:.1f} kernels an '
-                'iteration'.format(objective, driver, n_prof, t_prof, busy_s,
-                                   100 * busy_s / t_prof, launches / n_prof))
+            log('  {} under the profiler ({}, {} iters): {}'.format(
+                objective, driver, n_prof, busy_text(profile_busy(
+                    lambda: adagrad_run(inputs, n_prof, driver)), n_prof,
+                    'an iteration')))
     return step_kernel_check(vt, model, fam)
 
 
-def profile_busy(fn):
+def profile_busy(fn, attempts=6):
     """``(device busy s, kernels launched, wall s)`` of ``fn()`` under
-    ``torch.profiler``; raises if the trace holds no device time."""
+    ``torch.profiler``.  A trace now and then comes back with no device
+    records at all (see `device_ms`), so such a trace is taken again, with
+    ``fn()`` run anew after a pause, `attempts` times in all; then busy and
+    kernels are None (not measured).  It times, and checks nothing: the
+    launches are counted and held by the wrappers' counts elsewhere."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t_prof, _ = wall(fn)
-    on_card = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_s = sum(e.self_device_time_total for e in on_card) * 1e-6
-    if busy_s == 0:
-        raise AssertionError('the profiler trace holds no device time')
-    return busy_s, sum(e.count for e in on_card), t_prof
+    for attempt in range(attempts):
+        if attempt:
+            log('  the trace held no device time; taking it again')
+            time.sleep(1.0)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t_prof, _ = wall(fn)
+        on_card = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_s = sum(e.self_device_time_total for e in on_card) * 1e-6
+        if busy_s > 0:
+            return busy_s, sum(e.count for e in on_card), t_prof
+    log('  {} profiler traces held no device time: not measured'
+        .format(attempts))
+    return None, None, t_prof
+
+
+def busy_text(profiled, n, unit):
+    """The log's words for `profile_busy`'s result over n units of work."""
+    busy_s, kernels, t_prof = profiled
+    if busy_s is None:
+        return 'wall {:.3f} s, device busy not measured'.format(t_prof)
+    return 'wall {:.3f} s, device busy {:.4f} s ({:.1f} %), {:.1f} kernels ' \
+        '{}'.format(t_prof, busy_s, 100 * busy_s / t_prof, kernels / n, unit)
 
 
 def regression_model():
@@ -1009,14 +1076,12 @@ def regression_path(vt):
                                 'philox_normal', 'lw_partials',
                                 'combine_partials'), 'regression')
     n_prof = 500
-    busy_s, kernels, t_prof = profile_busy(lambda: ia_fit(
-        vt, model, fam, n_prof, IA_CHAINS, torch.float32, 'cuda',
-        torch.Generator(device='cuda').manual_seed(0)))
     log('regression IA under the profiler ({} iters, after the launch '
-        'counts were read): wall {:.3f} s, device busy {:.4f} s ({:.1f} %), '
-        '{:.0f} kernels an iteration'.format(
-            n_prof, t_prof, busy_s, 100 * busy_s / t_prof,
-            kernels / n_prof))
+        'counts were read): {}'.format(n_prof, busy_text(profile_busy(
+            lambda: ia_fit(vt, model, fam, n_prof, IA_CHAINS, torch.float32,
+                           'cuda',
+                           torch.Generator(device='cuda').manual_seed(0))),
+            n_prof, 'an iteration')))
     return model, fam, ia_param, launches
 
 
@@ -1317,16 +1382,15 @@ def experiment_path(vt):
     model, fam, init = experiment_models(vt)[0]
     chivi = vt.black_box_chivi(2, fam, model, 500, presampled=True)
     n_prof = 500
-    busy_s, kernels, t_prof = profile_busy(lambda: vt.adagrad_optimize(
+    profiled = profile_busy(lambda: vt.adagrad_optimize(
         n_prof, chivi, init.to('cuda', torch.float32), has_log_norm=False,
         learning_rate=EXP_LR, learning_rate_end=EXP_LR_END,
         return_history=False, device='cuda',
         generator=torch.Generator(device='cuda').manual_seed(9)))
     log('CHIVI on eight-schools NCP under the profiler ({} iters, after the '
-        'launch counts were read): wall {:.3f} s ({:.1f} it/s), device busy '
-        '{:.4f} s ({:.1f} %), {:.0f} kernels an iteration'.format(
-            n_prof, t_prof, n_prof / t_prof, busy_s, 100 * busy_s / t_prof,
-            kernels / n_prof))
+        'launch counts were read, {:.1f} it/s): {}'.format(
+            n_prof, n_prof / profiled[2],
+            busy_text(profiled, n_prof, 'an iteration')))
     return {name: out[4]['opt_param'] for name, (_, out) in runs.items()}, \
         launches
 
@@ -1412,7 +1476,8 @@ def multistart_configs(vt, model):
 
 def batched_rate(vt, obj, fam, init, lr, lr_end, n_iters=2000, seed=8):
     """Batched iterations a second of the 16-start optimizer alone
-    (graph), and the card's busy share over 500 iterations."""
+    (graph), and the log's words for the card's busy share over 500
+    iterations."""
     from viabel_tpu_torch.optimizers import _adagrad_runs, _learning_rates
     from viabel_tpu_torch.objectives import stack_draws
 
@@ -1430,8 +1495,8 @@ def batched_rate(vt, obj, fam, init, lr, lr_end, n_iters=2000, seed=8):
                              if isinstance(draws, dict) else draws[:, :n])
 
     t, _ = wall(lambda: run(n_iters))
-    busy_s, kernels, t_prof = profile_busy(lambda: run(500))
-    return n_iters / t, busy_s / t_prof, kernels / 500
+    return n_iters / t, busy_text(profile_busy(lambda: run(500)), 500,
+                                  'an iteration')
 
 
 def multistart_path(vt):
@@ -1487,11 +1552,10 @@ def multistart_path(vt):
         if abs(z) >= 3:
             raise AssertionError('multistart {}: the mean khat is {:+.2f} '
                                  'sd from the JAX package\'s'.format(name, z))
-        rate, busy, kernels = batched_rate(vt, obj, fam, init, lr, lr_end)
+        rate, busy = batched_rate(vt, obj, fam, init, lr, lr_end)
         log('  the 16-start optimizer alone (graph, 2000 iterations): '
             '{:.1f} batched it/s = {:.0f} start-iterations/s; under the '
-            'profiler (500) the card {:.1f} % busy, {:.0f} kernels an '
-            'iteration'.format(rate, MS_STARTS * rate, 100 * busy, kernels))
+            'profiler (500): {}'.format(rate, MS_STARTS * rate, busy))
     log('kernel launches on the multistart path: {}'.format(launches))
     require_launched(launches, ('transform_score_partials', 'lw_partials',
                                 'combine_partials', 'adagrad_step'),
@@ -2041,6 +2105,414 @@ def cli_path(vt):
     return total
 
 
+def http_get(base, path):
+    import urllib.request
+
+    with urllib.request.urlopen(base + path, timeout=600) as r:
+        return json.loads(r.read())
+
+
+def http_post(base, path, body):
+    import urllib.request
+
+    req = urllib.request.Request(base + path, data=json.dumps(body).encode(),
+                                 headers={'Content-Type': 'application/json'})
+    with urllib.request.urlopen(req, timeout=600) as r:
+        return json.loads(r.read())
+
+
+def require_finite(label, values):
+    for name, value in values.items():
+        if not is_finite(value):
+            raise AssertionError('{}: {} is not finite: {}'.format(
+                label, name, value))
+
+
+def service_reads(base, points):
+    """Phase 18 (b): /health, /moments, /sample?n=1000, /log_prob of 1000
+    points and /bounds?n=1e6, once each; returns the bounds."""
+    health = http_get(base, '/health')
+    moments = http_get(base, '/moments')
+    samples = np.asarray(http_get(base, '/sample?n=1000')['samples'])
+    lp = np.asarray(http_post(base, '/log_prob', {'x': points})['log_prob'])
+    bounds = http_get(base, '/bounds?n={}'.format(SERVE_BOUND))
+    log('  /health {}; /moments mean {}; /sample {} draws of shape {}; '
+        '/log_prob {} values, finite {}'.format(
+            health, moments['mean'], samples.shape[0], samples.shape,
+            lp.shape[0], bool(np.all(np.isfinite(lp)))))
+    log('  /bounds?n={}: {}'.format(SERVE_BOUND, bounds))
+    if samples.shape != (1000, 2) or lp.shape != (1000,) or \
+            not np.all(np.isfinite(lp)) or not np.all(np.isfinite(samples)):
+        raise AssertionError('/sample or /log_prob returned a wrong result')
+    require_finite('/bounds', bounds)
+    return bounds
+
+
+def service_fit_with_readers(base, service, quiet_fit):
+    """Phase 18 (f): /sample in a loop on this thread while a /fit runs on
+    another, the readers starting once the fit has taken its seed; every
+    read must succeed and one must finish before the fit; the fit's bounds
+    must equal `quiet_fit`'s (the same fit of a service of the same seed
+    and parameter, with no readers) to 1e-6 relative."""
+    import threading
+
+    start = service._seeds.get_state()
+    result, failures = {}, []
+
+    def fit():
+        try:
+            result['fit'] = http_post(base, '/fit', SERVE_FIT)
+        except Exception as e:  # noqa: BLE001 -- reported below
+            failures.append(e)
+        result['t_end'] = time.perf_counter()
+
+    fitter = threading.Thread(target=fit)
+    fitter.start()
+    while torch.equal(service._seeds.get_state(), start) and \
+            fitter.is_alive():
+        time.sleep(0.0005)
+    ends, errors = [], []
+    while fitter.is_alive():
+        try:
+            got = http_get(base, '/sample?n=1000')['samples']
+            if len(got) != 1000:
+                raise AssertionError('/sample returned {} draws'.format(
+                    len(got)))
+            ends.append(time.perf_counter())
+        except Exception as e:  # noqa: BLE001 -- counted below
+            errors.append(e)
+    fitter.join(timeout=600)
+    if failures or errors or fitter.is_alive():
+        raise AssertionError('reads during a fit: fit failures {}, read '
+                             'errors {}'.format(failures, errors[:3]))
+    before = sum(t < result['t_end'] for t in ends)
+    worst = max(abs(result['fit']['bounds'][k] - v) / abs(v)
+                for k, v in quiet_fit['bounds'].items())
+    log('  /fit with a /sample loop beside it: {} reads, all succeeded, {} '
+        'finished before the fit; the fit\'s bounds against the same fit '
+        'with no readers: largest relative difference {!r} (limit 1e-6), '
+        'khat {!r} against {!r}'.format(len(ends), before, worst,
+                                        result['fit']['khat'],
+                                        quiet_fit['khat']))
+    if before < 1 or not worst <= 1e-6:
+        raise AssertionError('the readers did not overlap the fit, or the '
+                             'fit changed')
+
+
+def service_path(vt):
+    """Phase 18: the HTTP service on the card, float32, in this process on
+    127.0.0.1, port 0: served from the default config's fit, its reads
+    (K1 d = 2 and the combine for /bounds), a /fit and a 4-start /fit
+    (the step kernel, replayed), a second /fit while one runs (503), reads
+    during a fit (unchanged fit), and each endpoint's latency."""
+    import threading
+    import urllib.error
+
+    from viabel_tpu_torch import serve
+    from viabel_tpu_torch.config import ExperimentConfig, build
+
+    cfg = ExperimentConfig()
+    model, family, objective = build(cfg)
+    reset_launches()
+    t_fit, var_param = wall(lambda: serve._fit_from_config(
+        cfg, model, family, objective, device='cuda'))
+    total = read_launches()
+    require_adagrad_steps(total, [cfg.n_iters], 'serve start-up fit')
+    log('served parameter from the default config (funnel, mf-t(40), '
+        'presampled KLVI, adagrad {} iterations): {:.3f} s'.format(
+            cfg.n_iters, t_fit))
+
+    def new_service():
+        return serve.PosteriorService(model, family, var_param,
+                                      seed=cfg.seed, device='cuda')
+
+    service = new_service()
+    httpd, thread = serve.start_server(service, port=0, host='127.0.0.1')
+    base = 'http://127.0.0.1:{}'.format(httpd.server_address[1])
+    points = np.random.RandomState(18).randn(1000, 2).tolist()
+    try:
+        reset_launches()
+        service_reads(base, points)
+        launches = read_launches()
+        log('  kernel launches of the reads: {}'.format(launches))
+        require_launched(launches, ('transform_score_partials',
+                                    'combine_partials'), 'service /bounds')
+        add_launches(total, launches)
+
+        fits = {}
+        for label, body in (('/fit', SERVE_FIT),
+                            ('/fit n_starts 4', dict(SERVE_FIT,
+                                                     n_starts=4))):
+            reset_launches()
+            t, fits[label] = wall(lambda: http_post(base, '/fit', body))
+            launches = read_launches()
+            fit = fits[label]
+            log('  {} ({} iterations, {:.0e} bound samples{}): {:.3f} s; '
+                'd2 {!r}, khat {!r}{}; launches {}'.format(
+                    label, body['n_iters'], body['n_bound_samples'],
+                    ' a start' if 'n_starts' in body else '', t,
+                    fit['bounds']['d2'], fit['khat'],
+                    ', best start {}'.format(fit['best'])
+                    if 'best' in fit else '', launches))
+            require_finite(label, dict(fit['bounds'], khat=fit['khat']))
+            require_launched(launches, ('transform_score_partials',
+                                        'combine_partials'), label)
+            # one step launch an iteration (a batched one for 4 starts)
+            require_adagrad_steps(launches, [body['n_iters']], label)
+            add_launches(total, launches)
+
+        # (e) a second fit while one runs
+        busy = {}
+        running = threading.Thread(target=lambda: busy.update(
+            fit=http_post(base, '/fit', SERVE_FIT)))
+        running.start()
+        while not service._fit_lock.locked() and running.is_alive():
+            time.sleep(0.0005)
+        try:
+            http_post(base, '/fit', SERVE_FIT)
+            code = 200
+        except urllib.error.HTTPError as e:
+            code = e.code
+        running.join(timeout=600)
+        log('  a second /fit while one runs: HTTP {} (the running one: '
+            'd2 {!r})'.format(code, busy.get('fit', {}).get('bounds', {})
+                              .get('d2')))
+        if code != 503 or 'fit' not in busy:
+            raise AssertionError('a concurrent /fit was not refused with '
+                                 '503')
+
+        # (f) reads during a fit, against the same fit with no readers
+        quiet = new_service().fit(**SERVE_FIT)
+        readers = new_service()
+        httpd2, thread2 = serve.start_server(readers, port=0,
+                                             host='127.0.0.1')
+        try:
+            service_fit_with_readers('http://127.0.0.1:{}'.format(
+                httpd2.server_address[1]), readers, quiet)
+        finally:
+            httpd2.shutdown()
+            httpd2.server_close()
+            thread2.join(timeout=60)
+
+        # (g) latencies: the median of 20 calls, the fits once each
+        calls = (('/health', lambda: http_get(base, '/health')),
+                 ('/moments', lambda: http_get(base, '/moments')),
+                 ('/sample?n=1000', lambda: http_get(base,
+                                                     '/sample?n=1000')),
+                 ('/log_prob (1000 points)', lambda: http_post(
+                     base, '/log_prob', {'x': points})),
+                 ('/bounds?n={}'.format(SERVE_BOUND), lambda: http_get(
+                     base, '/bounds?n={}'.format(SERVE_BOUND))))
+        lat = {}
+        for label, call in calls:
+            times = []
+            for _ in range(20):
+                t0 = time.perf_counter()
+                call()
+                times.append(time.perf_counter() - t0)
+            lat[label] = statistics.median(times) * 1e3
+        log('  latency, median of 20 calls (ms, host clock around the HTTP '
+            'call): {}'.format(json.dumps(
+                {k: round(v, 3) for k, v in lat.items()})))
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=60)
+    return total
+
+
+class HostTimer:
+    """Host seconds spent in the host-density bridge's calls (the copy to
+    the host, the C++ evaluation and the copy back), by wrapping
+    `models.external._Host` while the block runs."""
+
+    def __enter__(self):
+        from viabel_tpu_torch.models import external
+
+        self.cls, self.seconds, self.calls = external._Host, 0.0, 0
+        self.real = self.cls.value, self.cls.grad
+
+        def timed(fn):
+            def call(host, x):
+                t0 = time.perf_counter()
+                try:
+                    return fn(host, x)
+                finally:
+                    self.seconds += time.perf_counter() - t0
+                    self.calls += 1
+            return call
+
+        self.cls.value, self.cls.grad = (timed(f) for f in self.real)
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.value, self.cls.grad = self.real
+
+
+def native_path(vt):
+    """Phase 19: external and native densities on the card, float64:
+    validated_vi on the native robust regression against the torch model
+    (eager step kernel, K3 and the combine, no K1), and the IA chains under
+    vmap on the native eight-schools CP against the torch CP model."""
+    from viabel_tpu_torch import native
+    from viabel_tpu_torch.models import (eight_schools_cp_model,
+                                         robust_regression_model)
+
+    fam = vt.mean_field_t_variational_family(2, 40)
+    init = torch.zeros(fam.var_param_dim, dtype=torch.float64, device='cuda')
+
+    def fit(density):
+        return vt.validated_vi(density, fam, init, NATIVE_ITERS,
+                               n_mc_samples=N_MC,
+                               n_bound_samples=NATIVE_BOUND,
+                               generator=card_generator(19), device='cuda')
+
+    density = native.native_robust_regression_log_density()
+    fit(density)  # warm: the first run builds and loads the library
+    reset_launches()
+    with HostTimer() as host:
+        t_native, out_n = wall(lambda: fit(density))
+    launches = read_launches()
+    t_torch, out_t = wall(lambda: fit(robust_regression_model()))
+    log('validated_vi on robust regression, mf-t(40), presampled KLVI n_mc '
+        '{}, {} iterations, {:.0e} bound samples, float64: native C++ '
+        'density {:.3f} s ({} host calls, {:.3f} s of it in them: {:.1f} '
+        '%), the torch model {:.3f} s'.format(
+            N_MC, NATIVE_ITERS, NATIVE_BOUND, t_native, host.calls,
+            host.seconds, 100 * host.seconds / t_native, t_torch))
+    log('  native: d2 {!r}, khat {!r}; torch: d2 {!r}, khat {!r}'.format(
+        float(out_n['bounds']['d2']), out_n['khat'],
+        float(out_t['bounds']['d2']), out_t['khat']))
+    log('  kernel launches of the native run: {}'.format(launches))
+    worst = max(max_rel(out_n['opt_param'], out_t['opt_param']),
+                max_rel(out_n['bounds']['d2'], out_t['bounds']['d2']),
+                max_rel(out_n['khat'], out_t['khat']))
+    log('  native against torch: largest relative difference of the fit, '
+        'd2 and khat {!r} (limit 1e-9)'.format(worst))
+    if not worst <= 1e-9:
+        raise AssertionError('the native and torch fits differ')
+    if (launches['adagrad_step'], launches['adagrad_step (replayed)']) != \
+            (NATIVE_ITERS, 0):
+        raise AssertionError('the native run did not take the eager driver')
+    require_launched(launches, ('lw_partials', 'combine_partials'),
+                     'native')
+    if launches['transform_score_partials']:
+        raise AssertionError('K1 launched on a host density')
+    total = dict(launches)
+
+    mg = vt.mean_field_gaussian_variational_family(10)
+
+    def ia_chains(name, dens):
+        obj = vt.black_box_klvi(mg, dens, N_MC, presampled=True)
+        t, out = wall(lambda: vt.rmsprop_IA_optimize_with_rhat(
+            NATIVE_IA_ITERS, obj, torch.zeros(20, dtype=torch.float64,
+                                              device='cuda'), 10,
+            generator=card_generator(19), n_optimisers=2, rhat_window=100,
+            tail_avg_iters=NATIVE_IA_ITERS // 4, device='cuda'))
+        log('  RMSProp-IA, 2 chains x {} iterations on eight-schools CP, '
+            'mean-field Gaussian KLVI n_mc {}, float64, {}: {:.3f} s'.format(
+                NATIVE_IA_ITERS, N_MC, name, t))
+        return out
+
+    # only the native run is the path; the torch model's is its reference
+    reset_launches()
+    got = ia_chains('native', native.native_eight_schools_cp_log_density())
+    launches = read_launches()
+    log('  kernel launches of the native IA chains: {}'.format(launches))
+    add_launches(total, launches)
+    want = ia_chains('torch', eight_schools_cp_model())
+    worst = max(max_rel(got[j], want[j]) for j in (0, 1))
+    log('  native under vmap against torch: finite {}, largest relative '
+        'difference of the chains and the final iterate {!r} (limit 1e-9)'
+        .format(bool(np.all(np.isfinite(got[1]))), worst))
+    if not (np.all(np.isfinite(got[1])) and worst <= 1e-9):
+        raise AssertionError('the native IA chains differ from the torch '
+                             'model\'s')
+    return total
+
+
+def hmc_path(vt):
+    """Phase 20: HMC on the card: the eight-schools ground truth from NCP
+    draws (8 chains, float32) against the stored CP truth, its rate,
+    replays and busy share, and the graph against the eager body on the
+    same draws at float64."""
+    from viabel_tpu_torch import mcmc
+    from viabel_tpu_torch.models import (eight_schools_cp_model,
+                                         eight_schools_ncp_model,
+                                         eight_schools_ncp_to_cp)
+
+    ncp, cp = eight_schools_ncp_model(), eight_schools_cp_model()
+    mcmc.reset_counts()
+    t, gt = wall(lambda: vt.hmc_ground_truth(
+        ncp, generator=card_generator(20), transform=eight_schools_ncp_to_cp,
+        n_chains=HMC_CHAINS, n_warmup=HMC_WARMUP, n_samples=HMC_SAMPLES,
+        device='cuda'))
+    diag = gt['diagnostics']
+    n = HMC_WARMUP + HMC_SAMPLES
+    counts = dict(mcmc.transitions)
+    log('hmc_ground_truth, eight-schools NCP -> CP, {} chains, n_warmup {}, '
+        'n_samples {} (of 20000), float32: {:.3f} s, {:.1f} transitions/s; '
+        '{} transitions eager and {} from graph replays of {}; accept rate '
+        '{!r}, step sizes {}'.format(
+            HMC_CHAINS, HMC_WARMUP, HMC_SAMPLES, t, n / t, counts['eager'],
+            counts['replayed'], n, diag['accept_rate'],
+            np.round(diag['step_size'], 4).tolist()))
+    r_hat = float(np.max(diag['r_hat']))
+    mean_err = np.abs(gt['mean'] - cp.true_mean)
+    sd = np.sqrt(np.diag(gt['cov']))
+    sd_true = np.sqrt(np.diag(cp.true_cov))
+    sd_rel = np.abs(sd / sd_true - 1)
+    log('  max split R-hat {!r} (limit 1.01); mean against the stored CP '
+        'truth: largest error {!r} (atol 0.2); stdevs: largest relative '
+        'error {!r} (rtol 0.06)'.format(r_hat, float(mean_err.max()),
+                                        float(sd_rel.max())))
+    if counts != {'eager': 3 * mcmc._WARM, 'replayed': n - 3 * mcmc._WARM}:
+        raise AssertionError('HMC did not replay its graphs: {}'.format(
+            counts))
+    if not (r_hat < 1.01 and mean_err.max() <= 0.2 and sd_rel.max() <= 0.06):
+        raise AssertionError('HMC missed the stored truth')
+
+    # busy share over 500 transitions of the sampling phase (a graph)
+    C, d = HMC_CHAINS, ncp.dim
+    g = card_generator(21)
+    q0 = torch.randn((C, d), generator=g, device='cuda')
+    eps = torch.as_tensor(diag['step_size'], device='cuda')
+    mass = torch.as_tensor(diag['inv_mass'], device='cuda')
+    draws = mcmc._phase_draws(g, 500, C, d, 32, torch.float32)
+    log('  500 sampling transitions under the profiler: {}'.format(
+        busy_text(profile_busy(lambda: mcmc._phase(
+            ncp.log_prob, q0, draws, eps, mass, False, 0.8, 32)), 500,
+            'a transition')))
+
+    # the graph against the eager body on the same draws, float64
+    q64 = q0.double()
+    draws64 = mcmc._phase_draws(g, HMC_COMPARE, C, d, 32, torch.float64)
+    for adapt in (True, False):
+        outs = {driver: mcmc._phase(ncp.log_prob, q64, draws64,
+                                    eps.double(), mass.double(), adapt, 0.8,
+                                    32, driver)
+                for driver in ('graph', 'eager')}
+        worst = max(max_rel(a, b) for a, b in zip(outs['graph'],
+                                                  outs['eager']))
+        log('  {} transitions, {}, float64: graph against eager, largest '
+            'relative difference {!r} (limit 1e-10)'.format(
+                HMC_COMPARE, 'adaptive' if adapt else 'sampling', worst))
+        if not worst <= 1e-10:
+            raise AssertionError('the HMC graph differs from the eager '
+                                 'body')
+
+
+def new_phases(vt):
+    """Phases 18-20; the launch counts of 18 and 19."""
+    launches = [service_path(vt)]
+    phases_done('18')
+    launches.append(native_path(vt))
+    phases_done('19')
+    hmc_path(vt)
+    phases_done('20')
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -2058,6 +2530,7 @@ def main():
                                       time.perf_counter() - t0))
     for text in nvcc_logs.values():
         log_ptxas(text)
+    phases_done('1')
 
     model = eight_schools_cp_model()
     fam = vt.mean_field_t_variational_family(model.dim, 40)
@@ -2068,22 +2541,31 @@ def main():
     small_reference_check(vt, model, fam)
     graph_against_eager(vt, model, fam)
     rows['adagrad_step'] = time_breakdown(vt, model, fam, out['opt_param'])
+    phases_done('2-5')
 
     rmodel, rfam, ia_param, r_launches = regression_path(vt)
     rows.update(regression_kernel_checks(vt, rmodel, rfam, ia_param))
     regression_card_vs_cpu(vt)
     k2_statistics(vt, rmodel, rfam, ia_param)
+    phases_done('6-9')
 
     fits, e_launches = experiment_path(vt)
     experiment_kernel_checks(vt, fits)
+    phases_done('10-11')
 
     # timed before the long traces of phases 13-15, after which the
     # profiler's traces come back without kernel records
     rows['adagrad_step']['instances'] = batched_step_check(vt)
-    path_launches = [launches, r_launches, e_launches, multistart_path(vt),
-                     sweep_path(vt), large_d_path(vt)]
+    phases_done('12')
+    path_launches = [launches, r_launches, e_launches, multistart_path(vt)]
+    phases_done('13')
+    path_launches += [sweep_path(vt), large_d_path(vt)]
+    phases_done('14-15')
     batched_card_vs_cpu(vt)
+    phases_done('16')
     path_launches.append(cli_path(vt))
+    phases_done('17')
+    path_launches.extend(new_phases(vt))
 
     kernels = [dict(name=name, route='cuda',
                     source='viabel_tpu_torch/csrc/' + SOURCE[name],

@@ -4,7 +4,7 @@ The PyTorch port of the JAX package `viabel_tpu`, for an NVIDIA H100.  It
 keeps the JAX package's module names, so each function has a counterpart
 of the same name there, and it imports neither JAX nor `viabel_tpu`.
 
-It carries five slices: the eight-schools validated-VI pipeline (the
+It carries six slices: the eight-schools validated-VI pipeline (the
 mean-field families, presampled KLVI, windowed adagrad, the bounds, PSIS,
 the fused pipeline `validated_vi`); R-hat-gated iterate averaging on
 Bayesian regression (`diagnostics`, the RMSProp/Adam IA optimizers, the
@@ -17,7 +17,11 @@ command line ``python -m viabel_tpu_torch run`` / ``configs``
 (`__main__`, `config`) with checkpoint and resume (`checkpoint`), the
 segmented IA chain runs with progress and objectives that sample inside
 the step, the constrained-parameter transforms (`transforms`) and the
-normal-mixture model.  The bound
+normal-mixture model; and the HTTP posterior service
+(``python -m viabel_tpu_torch.serve``, `serve`), the in-repo HMC ground
+truth (`mcmc`: `hmc_sample`, `hmc_ground_truth`) and host-side log
+densities (`models.make_callback_log_density`, the C++ densities of
+`native`).  The bound
 pass runs on hand-written CUDA kernels: K1, K3 and the combine in
 ``csrc/lw_stats.cu`` (`ops.lw_stats`), and K2, which draws a Gaussian q's
 samples in-kernel from a Philox stream, with ``philox_normal`` in
@@ -42,6 +46,7 @@ from .experiments import (check_accuracy, check_approx_accuracy,
                           get_samples_and_log_weights, improve_with_psis,
                           print_bounds, psis_correction, run_experiment)
 from .distributions import multivariate_t_logpdf
+from .mcmc import hmc_ground_truth, hmc_sample
 from .families import (NoClosedFormMomentError, VariationalFamily,
                        full_rank_gaussian_variational_family,
                        init_from_moments,
@@ -83,6 +88,8 @@ __all__ = [
     'get_samples_and_log_weights', 'psis_correction', 'improve_with_psis',
     'check_accuracy', 'check_approx_accuracy', 'print_bounds',
     'run_experiment',
+    # in-repo MCMC ground truth
+    'hmc_sample', 'hmc_ground_truth',
     'psislw', 'weighted_moments',
     'validated_vi', 'validated_vi_multistart', 'validated_vi_sweep',
     'DivergedRunWarning',

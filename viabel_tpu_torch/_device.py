@@ -12,10 +12,48 @@ products measurably move converged optima (the JAX package pins
 `resolve_device` applies the policy whenever it hands out a CUDA device,
 so `weighted_moments`, `central_moments` and the covariance products never
 run in TF32.
+
+`pick_driver` states how a loop body runs (captured in a CUDA graph and
+replayed, or eagerly); `capture` is the package's one way to capture a body,
+and `between_captures` keeps other threads' device work away from one.
 """
+import contextlib
+import threading
+
 import torch
 
-__all__ = ['resolve_device', 'fp32_matmul_policy', 'default_generator']
+__all__ = ['resolve_device', 'fp32_matmul_policy', 'default_generator',
+           'pick_driver', 'capture', 'between_captures']
+
+# A CUDA graph capture in PyTorch's default ("global") mode fails if any
+# thread of the process makes an unsafe CUDA call (an allocation, a
+# synchronization) while it is underway.  That hazard is process-wide, so
+# the lock is too: every capture of the package goes through `capture`,
+# which holds it from ``capture_begin`` to ``capture_end``, and code that
+# runs device work on other threads beside one that captures (the HTTP
+# service's readers, `serve.PosteriorService`) holds it around that work
+# (`between_captures`), so it waits at most one capture, never a whole run.
+_capture_lock = threading.Lock()
+
+
+def capture(body, stream):
+    """``body()`` captured on `stream` as a `torch.cuda.CUDAGraph`, under
+    the process-wide capture lock.  A failed capture raises."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(stream), _capture_lock:
+        graph.capture_begin()
+        try:
+            body()
+        finally:
+            graph.capture_end()
+    return graph
+
+
+@contextlib.contextmanager
+def between_captures():
+    """Hold off every capture of the process while the block runs."""
+    with _capture_lock:
+        yield
 
 
 def fp32_matmul_policy():
@@ -43,3 +81,31 @@ def default_generator(device, seed=0):
     """A seeded `torch.Generator` on ``device`` (the counterpart of the
     JAX package's default ``PRNGKey(0)``)."""
     return torch.Generator(device=device).manual_seed(seed)
+
+
+def pick_driver(driver, device, host_callback, presampled=True):
+    """How a loop body runs: ``'graph'`` (captured once in a CUDA graph and
+    replayed) or ``'eager'``.
+
+    The rule: the graph on the card for a body whose draws are made before
+    the loop (`presampled`) and that calls no host-side log density
+    (`host_callback`, `models.external`), whose round trip to the host
+    cannot be captured; eagerly otherwise, and always on the CPU.
+    `driver` names one instead (to compare the two); asking for the graph
+    where the rule forbids it raises, so a body is never quietly run
+    another way than the one asked for."""
+    if driver not in (None, 'eager', 'graph'):
+        raise ValueError('driver must be None, "eager" or "graph"')
+    capturable = (presampled and not host_callback
+                  and torch.device(device).type == 'cuda')
+    if driver is None:
+        return 'graph' if capturable else 'eager'
+    if driver == 'graph' and not capturable:
+        if host_callback:
+            raise ValueError(
+                'a host-side log density (host_callback) cannot be captured '
+                'in a CUDA graph: its round trip to the host leaves the '
+                'card; use the eager driver')
+        raise ValueError('the graph driver runs presampled objectives on the '
+                         'card only')
+    return driver

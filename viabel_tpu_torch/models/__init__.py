@@ -1,5 +1,7 @@
-"""PyTorch log-density models (the ported part of viabel_tpu/models)."""
+"""PyTorch log-density models (viabel_tpu/models), with the bridge for
+host-side densities (`make_callback_log_density`)."""
 from .base import Model
+from .external import make_callback_log_density
 from .eight_schools import (EIGHT_SCHOOLS_SIGMA, EIGHT_SCHOOLS_Y,
                             eight_schools_cp_model, eight_schools_ncp_model,
                             eight_schools_ncp_to_cp)
@@ -22,4 +24,5 @@ __all__ = [
     'robust_regression_notebook_data',
     'linear_regression_model',
     'data_generator_linear',
+    'make_callback_log_density',
 ]

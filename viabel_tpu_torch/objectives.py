@@ -17,7 +17,9 @@ the IA optimizers' batched chain step feeds it each chain's draws of an
 iteration (``iteration_draws(generator, dtype)``, the ``(n_samples,
 ...)`` base draws that sampling from `generator` would transform).
 
-Every objective carries ``has_log_norm``.  The KLVI forms carry their pure
+Every objective carries ``has_log_norm``, and ``host_callback``: whether
+its log density is a host-side one (`models.external`), which the
+optimizers never capture in a CUDA graph.  The KLVI forms carry their pure
 scalar ``objective(var_param, draws)``, whose gradient the batched
 optimizers take with ``torch.func.grad_and_value``; the CHIVI forms carry
 ``compute_log_weights`` and are themselves `torch.func`-transformable (the
@@ -26,6 +28,7 @@ constant), so the batched optimizers vmap them.
 """
 import torch
 
+from .models.external import is_host_callback
 from .ops.gaussian_lw import philox_normal
 
 __all__ = ['black_box_klvi', 'black_box_klvi_pd', 'black_box_klvi_pd2',
@@ -147,10 +150,11 @@ def _sample_or_transform(var_family, n_samples, presampled, var_param,
     return var_family.sample(rng_or_draws, var_param, n_samples)
 
 
-def _klvi_objective(objective, presampled, var_family, n_samples):
-    """``objective_and_grad`` of a pure scalar `objective`: its value and
-    its gradient by `torch.autograd.grad`, with the attributes the
-    optimizers read."""
+def _klvi_objective(objective, presampled, var_family, n_samples,
+                    log_density):
+    """``objective_and_grad`` of a pure scalar `objective` of
+    `log_density`: its value and its gradient by `torch.autograd.grad`,
+    with the attributes the optimizers read."""
 
     def objective_and_grad(var_param, rng_or_draws):
         with torch.enable_grad():
@@ -161,6 +165,7 @@ def _klvi_objective(objective, presampled, var_family, n_samples):
 
     objective_and_grad.has_log_norm = False
     objective_and_grad.objective = objective
+    objective_and_grad.host_callback = is_host_callback(log_density)
     _attach_draws(objective_and_grad, var_family, n_samples)
     if presampled:
         _attach_presampling(objective_and_grad, var_family, n_samples)
@@ -182,7 +187,8 @@ def black_box_klvi(var_family, log_density, n_samples, presampled=False):
                        + torch.mean(log_density(samples)))
         return -lower_bound
 
-    return _klvi_objective(objective, presampled, var_family, n_samples)
+    return _klvi_objective(objective, presampled, var_family, n_samples,
+                           log_density)
 
 
 def black_box_klvi_pd(var_family, log_density, n_samples, presampled=False):
@@ -196,7 +202,8 @@ def black_box_klvi_pd(var_family, log_density, n_samples, presampled=False):
                        - torch.mean(var_family.log_prob(var_param, samples)))
         return -lower_bound
 
-    return _klvi_objective(objective, presampled, var_family, n_samples)
+    return _klvi_objective(objective, presampled, var_family, n_samples,
+                           log_density)
 
 
 def black_box_klvi_pd2(var_family, log_density, n_samples,
@@ -214,7 +221,8 @@ def black_box_klvi_pd2(var_family, log_density, n_samples,
                        - torch.mean(var_family.log_prob(frozen, samples)))
         return -lower_bound
 
-    return _klvi_objective(objective, presampled, var_family, n_samples)
+    return _klvi_objective(objective, presampled, var_family, n_samples,
+                           log_density)
 
 
 def _chivi(alpha, var_family, log_density, n_samples, presampled, neff):
@@ -242,6 +250,7 @@ def _chivi(alpha, var_family, log_density, n_samples, presampled, neff):
         return value, alpha * vjp * n_eff / (n * n), log_norm, n_eff
 
     value_grad_and_log_norm.has_log_norm = True
+    value_grad_and_log_norm.host_callback = is_host_callback(log_density)
     value_grad_and_log_norm.compute_log_weights = compute_log_weights
     _attach_draws(value_grad_and_log_norm, var_family, n_samples)
     if presampled:
@@ -304,7 +313,7 @@ def perturbed_black_box_vi(var_family, log_density, n_samples,
         return perturbed_objective(var_param, noise, draws)
 
     objective_and_grad = _klvi_objective(objective, False, var_family,
-                                         n_samples)
+                                         n_samples, log_density)
     objective_and_grad.perturbed_objective = perturbed_objective
     # it draws its perturbation noise too: no base draws stand in for it
     objective_and_grad.iteration_draws = None

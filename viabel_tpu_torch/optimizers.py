@@ -33,7 +33,8 @@ import os
 import numpy as np
 import torch
 
-from ._device import default_generator, resolve_device
+from ._device import (capture, default_generator, pick_driver,
+                      resolve_device)
 from .diagnostics import (compute_R_hat_adaptive, compute_R_hat_halfway,
                           stochastic_iterate_averaging)
 from .objectives import map_draws, stack_draws
@@ -86,6 +87,7 @@ def _wrap_objective(objective_and_grad, has_log_norm):
             value, grad = objective_and_grad(var_param, rng_or_draws)[:2]
             return value, grad, torch.zeros_like(value)
     obj.presampled = getattr(objective_and_grad, 'presampled', False)
+    obj.host_callback = getattr(objective_and_grad, 'host_callback', False)
     return obj
 
 
@@ -197,13 +199,8 @@ def _adagrad_graph(obj, state, source, start, iters, window, report=None):
     graphs = []
     for count, steps in ((full, _GRAPH_ITERS), (rest, 1)):
         if count:
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.stream(side):
-                graph.capture_begin()
-                try:
-                    _adagrad_eager(obj, state, source, 0, steps)
-                finally:
-                    graph.capture_end()
+            graph = capture(lambda: _adagrad_eager(obj, state, source, 0,
+                                                   steps), side)
             graphs.append((graph, steps, count))
     main.wait_stream(side)
     i = start + warm
@@ -230,18 +227,12 @@ def _advance(obj, state, source, start, iters, window, driver=None,
              report=None):
     """Run `state` (one run or a batch, at iteration `start`) through
     iterations ``start .. start + iters - 1`` of the body, by the driver
-    that the objective's type and the device pick (see `_adagrad_run`),
+    that `_device.pick_driver` picks (see `_adagrad_run`),
     and check that every iteration ran.  `source` is a presampled
     objective's whole-run block of draws, or an `_IterationGenerator`."""
-    presampled = getattr(obj, 'presampled', False)
-    on_card = state.param.device.type == 'cuda'
-    if driver is None:
-        driver = 'graph' if presampled and on_card else 'eager'
-    if driver == 'graph' and not (presampled and on_card):
-        raise ValueError('the graph driver runs presampled objectives on the '
-                         'card only')
-    if driver not in ('eager', 'graph'):
-        raise ValueError('driver must be None, "eager" or "graph"')
+    driver = pick_driver(driver, state.param.device,
+                         getattr(obj, 'host_callback', False),
+                         getattr(obj, 'presampled', False))
     if driver == 'graph':
         _adagrad_graph(obj, state, source, start, iters, window, report)
     else:
@@ -283,12 +274,13 @@ def _adagrad_run(obj, n_iters, window, learning_rate, epsilon,
     ``fold_in(seed, i)``, the seed drawn once from the generator).  The
     state of the run lives on the device (`ops.adagrad.AdagradState`) and
     one body (`_adagrad_iteration`) runs every iteration.  The driver is
-    chosen by the objective's type and the device: a presampled objective
-    on the card runs as a replayed CUDA graph (`_adagrad_graph`); an
-    objective that samples from a generator, and any run on the CPU (with
+    chosen by `_device.pick_driver`'s rule: a presampled objective on the
+    card runs as a replayed CUDA graph (`_adagrad_graph`); an objective
+    that samples from a generator, one on a host-side log density
+    (``host_callback``, `models.external`), and any run on the CPU (with
     the plain step), run eagerly.  ``driver='eager'`` or ``'graph'`` names
-    one instead (to compare the two); the graph takes presampled objectives
-    on the card only.  The tail-quarter running sum is accumulated in both history
+    one instead (to compare the two); asking for the graph where the rule
+    forbids it raises.  The tail-quarter running sum is accumulated in both history
     modes, so the averaged parameter is the same whether or not the
     history is kept.  ``progress=True`` prints the JAX package's progress
     lines (`_progress`): the graph then stops for one host read at each
@@ -429,6 +421,7 @@ def _batched_step(objective_and_grad, has_log_norm):
             return value, grad, torch.zeros_like(value)
 
     step.presampled = True
+    step.host_callback = getattr(objective_and_grad, 'host_callback', False)
     return step
 
 

@@ -6,6 +6,11 @@
                                            # the step kernel's check and
                                            # time, at stand-in fits; no
                                            # result line
+    python3 chip_smoke.py --mesh-cards     # two cards or more: phase 21
+                                           # (b)'s multistart on every
+                                           # card, one process and 2
+                                           # NCCL ranks, against one
+                                           # card; no result line
 
 Phases, each printed as it goes; any failure exits non-zero before the
 result line:
@@ -180,13 +185,33 @@ result line:
     replayed CUDA graph: max split R-hat < 1.01, the mean within 0.2 and
     the stdevs within 6 % of the stored CP truth (tests/test_mcmc.py:86-89);
     transitions a second, replays against transitions, and the card's busy
-    share over 500 sampling transitions; then 50 transitions through the
+    share over 100 sampling transitions; then 50 transitions through the
     graph and through the eager body on the same draws, float64, adaptive
-    and sampling (1e-10 relative).
+    and sampling (1e-10 relative);
+21. the mesh paths (`viabel_tpu_torch.parallel`) on the one card, float32,
+    each part with every launch count set to 0 just before it and read
+    just after, each wall printed beside the card's name and power limit:
+    (a) ``validated_vi`` of phase 2's configuration with its bound pass,
+    PSIS and moments on a 4-way sample axis (cuda:0 listed 4 times):
+    bounds and khat finite, K1, the combine and the step kernel launched;
+    then the bound pass + PSIS + moments unsharded and on S = 1, 2, 4, 8
+    shards (its cost on one card), and at float64 and 2e5 samples the
+    sharded pass against the unsharded pass on its shards' draws (K1 on
+    eight-schools CP, PSIS, and the K2 row-range route on regression, each
+    to 1e-10); (b) phase 13's mf-t KLVI multistart on a (4, 2) (chain,
+    sample) mesh, its mean khat inside 3 sd of the JAX package's band; (c)
+    the 4 RMSProp-IA regression chains on a 4-way chain axis (2000 of
+    phase 6's 5000 iterations), then ``improve_with_psis_sharded`` at 1e6
+    on 4 shards (K2 and ``philox_normal``) against ``improve_with_psis``
+    on the same Philox draws; (d) ``/bounds?n=1e6`` of the service through
+    a 2-way mesh, and its latency beside the service without a mesh; (e) 2
+    ranks spawned on the one card over Gloo (over NCCL with a card each
+    where there are two cards; the log says which), equal to the
+    one-process 2-entry mesh bit for bit.
 
 The line before the last is a JSON object with one entry per kernel:
 route, source, the TPU kernel it replaces, launches on the paths of phases
-2, 6, 10, 13, 14, 15, 17, 18 and 19 (summed), the float32 max abs error, its time by
+2, 6, 10, 13, 14, 15, 17, 18, 19 and 21 (summed), the float32 max abs error, its time by
 events around the call (``ms``) and on the card (``device_ms``), the plain
 version's time, its bound (the larger of bytes over 3.35 TB/s and
 operations over 67 TFLOP/s float32, H100 SXM data-sheet peaks; integer
@@ -285,8 +310,24 @@ SERVE_FIT = dict(n_iters=5000, n_bound_samples=SERVE_BOUND)
 # phase 19: the native densities, validated_vi and the IA chains
 NATIVE_ITERS, NATIVE_BOUND, NATIVE_IA_ITERS = 2000, 1_000_000, 300
 # phase 20: examples/eight_schools.py --hmc's protocol (8 chains, n_warmup
-# 1000), n_samples cut from 20000 to 4000; 50 transitions graph vs eager
+# 1000), n_samples cut from 20000 to 4000; 50 transitions graph vs eager;
+# the busy share over 100 sampling transitions (500 took ~130 s to trace)
 HMC_CHAINS, HMC_WARMUP, HMC_SAMPLES, HMC_COMPARE = 8, 1000, 4000, 50
+HMC_TRACE = 100
+# phase 21: the mesh paths on the one card: a 4-way sample axis (cuda:0
+# listed 4 times), phase 13's mf-t KLVI on a (4, 2) (chain, sample) mesh,
+# the 4 regression IA chains on a 4-way chain axis (2000 of phase 6's 5000
+# iterations, each chain's group one after another), /bounds through a
+# 2-way mesh, and 2 ranks against one process; the f64 comparisons at
+# 2e5 samples
+MESH_S, MESH_IA_ITERS, MESH_SMALL, MESH_RANK_N = 4, 2000, 200_000, 1_000_000
+MESH_COSTS = (1, 2, 4, 8)
+# the IA chains on a chain mesh against the run without one, largest
+# difference over largest value: float32 10x the reading on an H100
+# (5.7e-5 of 5.44, 1.05e-5), float64 the optimizer runs' 1e-8 at 500
+# iterations
+MESH_IA_F64_ITERS = 500
+MESH_IA_TOL = {'float32': 1e-4, 'float64': 1e-8}
 
 
 def ops_k2(d, n_rows):
@@ -1003,17 +1044,19 @@ def regression_model():
     return linear_regression_model(data['X'], data['Y'])
 
 
-def ia_fit(vt, model, fam, n_iters, n_chains, dtype, device, generator):
+def ia_fit(vt, model, fam, n_iters, n_chains, dtype, device, generator,
+           mesh=None):
     """The IA run of examples/linear_regression_ia.py main(): RMSProp-IA
     with R-hat windows of n_iters // 10 (at least 100), a tail of
-    n_iters // 4, and the fit [avg_means[0][-1], avg_sigmas[0][-1]]."""
+    n_iters // 4, and the fit [avg_means[0][-1], avg_sigmas[0][-1]]
+    (with `mesh`, the chains split over its chain axis)."""
     obj = vt.black_box_klvi(fam, model, N_MC, presampled=True)
     init = torch.zeros(fam.var_param_dim, dtype=dtype, device=device)
     out = vt.rmsprop_IA_optimize_with_rhat(
         n_iters, obj, init, fam.dim, generator=generator,
         learning_rate=IA_LR, n_optimisers=n_chains,
         rhat_window=max(n_iters // 10, 100), tail_avg_iters=n_iters // 4,
-        device=device)
+        device=device, mesh=mesh)
     _, chains, avg_means, avg_sigmas, _, _, ia_log = out
     ia_param = torch.as_tensor(np.concatenate([avg_means[0][-1],
                                                avg_sigmas[0][-1]]),
@@ -2472,16 +2515,16 @@ def hmc_path(vt):
     if not (r_hat < 1.01 and mean_err.max() <= 0.2 and sd_rel.max() <= 0.06):
         raise AssertionError('HMC missed the stored truth')
 
-    # busy share over 500 transitions of the sampling phase (a graph)
+    # busy share over HMC_TRACE transitions of the sampling phase
     C, d = HMC_CHAINS, ncp.dim
     g = card_generator(21)
     q0 = torch.randn((C, d), generator=g, device='cuda')
     eps = torch.as_tensor(diag['step_size'], device='cuda')
     mass = torch.as_tensor(diag['inv_mass'], device='cuda')
-    draws = mcmc._phase_draws(g, 500, C, d, 32, torch.float32)
-    log('  500 sampling transitions under the profiler: {}'.format(
-        busy_text(profile_busy(lambda: mcmc._phase(
-            ncp.log_prob, q0, draws, eps, mass, False, 0.8, 32)), 500,
+    draws = mcmc._phase_draws(g, HMC_TRACE, C, d, 32, torch.float32)
+    log('  {} sampling transitions under the profiler: {}'.format(
+        HMC_TRACE, busy_text(profile_busy(lambda: mcmc._phase(
+            ncp.log_prob, q0, draws, eps, mass, False, 0.8, 32)), HMC_TRACE,
             'a transition')))
 
     # the graph against the eager body on the same draws, float64
@@ -2503,14 +2546,505 @@ def hmc_path(vt):
 
 
 def new_phases(vt):
-    """Phases 18-20; the launch counts of 18 and 19."""
+    """Phases 18-21; the launch counts of 18, 19 and 21."""
     launches = [service_path(vt)]
     phases_done('18')
     launches.append(native_path(vt))
     phases_done('19')
     hmc_path(vt)
     phases_done('20')
+    launches.append(mesh_path(vt))
+    phases_done('21')
     return launches
+
+
+def card_mesh(names, shape):
+    """A mesh of the one card, listed once an entry."""
+    from viabel_tpu_torch import parallel
+    return parallel.make_mesh(names, shape=shape,
+                              devices=['cuda:0'] * int(np.prod(shape)))
+
+
+def part_line(label, seconds):
+    log('  {}: {:.3f} s on {}'.format(label, seconds, card_line()))
+
+
+def mesh_validated_vi(vt, model, fam):
+    """Phase 21 (a): validated_vi on eight-schools CP with the bound pass,
+    PSIS and the moments on a 4-way sample axis; then the S-way pass's
+    cost against the unsharded pass; returns its fit and launches."""
+    init = torch.zeros(fam.var_param_dim, dtype=torch.float32, device='cuda')
+    mesh = card_mesh(('sample',), (MESH_S,))
+    reset_launches()
+    t, out = wall(lambda: vt.validated_vi(
+        model, fam, init, N_ITERS, n_mc_samples=N_MC,
+        n_bound_samples=N_BOUND, learning_rate=0.01, learning_rate_end=0.001,
+        generator=card_generator(21), mesh=mesh))
+    launches = read_launches()
+    b = out['bounds']
+    log('validated_vi on a {}-way sample axis of cuda:0 ({} iterations, '
+        '{:.1e} bound samples, float32): d2 {!r}, khat {!r}, W2 {!r}; q '
+        'mean head {}'.format(MESH_S, N_ITERS, N_BOUND, float(b['d2']),
+                              out['khat'], b['W2'],
+                              out['q_mean'][:3].cpu().tolist()))
+    part_line('(a) validated_vi(mesh=)', t)
+    log('  kernel launches: {}'.format(launches))
+    require_finite('validated_vi(mesh=)', dict(d2=b['d2'], W2=b['W2'],
+                                               khat=out['khat']))
+    require_launched(launches, ('transform_score_partials',
+                                'combine_partials', 'adagrad_step'),
+                     'validated_vi(mesh=)')
+    require_adagrad_steps(launches, [N_ITERS], 'validated_vi(mesh=)')
+    return out['opt_param'], launches
+
+
+def mesh_costs(model, fam, opt):
+    """What an S-way sample axis on one card costs: the bound pass, PSIS
+    and the corrected moments at 2.5e6 samples, unsharded and on S
+    shards (draws included), median of 5 after a warm-up."""
+    from viabel_tpu_torch.pipeline import _bound_and_psis, _sharded_run
+    from viabel_tpu_torch.psis import _tail_len
+
+    tail = _tail_len(N_BOUND, 1.0)
+
+    def unsharded():
+        z = fam.base_sample(card_generator(5), N_BOUND, torch.float32)
+        return _bound_and_psis(fam, model, 2.0, tail, opt, z)
+
+    def sharded(S):
+        line = card_mesh(('sample',), (S,)).line('sample')
+        return _sharded_run(fam, model, 2.0, N_BOUND, opt, 12345, line,
+                            torch.device('cuda:0'))
+
+    costs = {}
+    for label, fn in [('unsharded', unsharded)] + [
+            ('S={}'.format(S), lambda S=S: sharded(S)) for S in MESH_COSTS]:
+        fn()
+        costs[label] = statistics.median(wall(fn)[0] for _ in range(5))
+    log('  the bound pass + PSIS + moments at {:.1e} samples, float32, '
+        'median of 5 (s): {} on {}'.format(
+            N_BOUND, json.dumps({k: round(v, 5) for k, v in costs.items()}),
+            card_line()))
+    return costs
+
+
+def bound_rel(got, want):
+    """`max_rel` of two bounds, 0 where both are the same infinity."""
+    if float(got) == float(want):
+        return 0.0
+    return max_rel(got, want)
+
+
+def mesh_f64_checks(vt, model, fam, opt):
+    """Phase 21 (a), f64 at 2e5 samples: the sharded pass against the
+    unsharded pass on its shards' draws (K1 on eight-schools CP, the
+    generators fold_in(seed, i)), PSIS, and the K2 row-range route on
+    regression against the unsharded stream, each to 1e-10."""
+    from viabel_tpu_torch import parallel
+    from viabel_tpu_torch.experiments import draw_and_score
+    from viabel_tpu_torch.ops import gaussian_lw as gops
+    from viabel_tpu_torch.ops.philox import fold_in
+
+    mesh = card_mesh(('sample',), (MESH_S,))
+    vp = opt.double()
+    n, seed, worst = MESH_SMALL, 777, {}
+    got, lw = parallel.sharded_all_bounds(model, fam, vp, n, seed, mesh,
+                                          return_log_weights=True)
+    z = torch.cat([fam.base_sample(card_generator(fold_in(seed, i)),
+                                   n // MESH_S, torch.float64)
+                   for i in range(MESH_S)])
+    samples, want_lw, _ = draw_and_score(model, fam, vp, z)
+    want = vt.all_bounds(want_lw, samples=samples)
+    worst['K1 bounds'] = max(bound_rel(got[k], want[k]) for k in want)
+    worst['K1 lw'] = max_rel(parallel.fetch_global(lw), want_lw)
+    slw, khat = parallel.psislw_sharded(lw, mesh)
+    want_slw, want_khat = vt.psislw(want_lw)
+    worst['PSIS khat'] = max_rel(khat, want_khat)
+    worst['PSIS smoothed (abs)'] = float(np.abs(
+        parallel.fetch_global(slw) - want_slw.cpu().numpy()).max())
+
+    rmodel = regression_model()
+    gfam = vt.mean_field_gaussian_variational_family(rmodel.dim)
+    gvp = torch.as_tensor(np.concatenate([
+        rmodel.true_mean, 0.5 * np.log(np.diag(rmodel.true_cov))]),
+        device='cuda')
+    got, lw, smp = parallel.sharded_all_bounds(
+        rmodel, gfam, gvp, n, seed, mesh, return_log_weights=True,
+        return_samples=True)
+    want_lw, _ = gops.gaussian_sample_score_partials(
+        gvp[:10], gvp[10:], n, seed, 0, rmodel.kernel,
+        rmodel.kernel_data_like(gvp))
+    want_smp = gfam.transform(gvp, gops.philox_normal(
+        n, 10, seed, 0, 0, torch.float64, 'cuda'))
+    want = vt.all_bounds(want_lw, samples=want_smp)
+    finite = {k: bool(np.all(np.isfinite(np.asarray(want[k])))) for k in want}
+    log('  K2 bounds finite (compared to 1e-10): {}; infinite in both '
+        'passes (equal infinities count 0): {}'.format(
+            sorted(k for k in want if finite[k]),
+            sorted(k for k in want if not finite[k])))
+    worst['K2 bounds'] = max(bound_rel(got[k], want[k]) for k in want)
+    worst['K2 lw'] = max_rel(parallel.fetch_global(lw), want_lw)
+    worst['philox_normal rows'] = max_rel(parallel.fetch_global(smp),
+                                          want_smp)
+    log('  sharded against unsharded on the same draws, float64, {:.0e} '
+        'samples on {} shards: {} (limit 1e-10)'.format(
+            n, MESH_S, json.dumps(worst)))
+    if not all(v <= 1e-10 for v in worst.values()):
+        raise AssertionError('a sharded pass differs from the unsharded '
+                             'pass on its draws')
+
+
+def mesh_multistart(vt):
+    """Phase 21 (b): phase 13's mf-t KLVI multistart (16 starts, 1e6 bound
+    samples each) on a (4, 2) (chain, sample) mesh of the card."""
+    from viabel_tpu_torch.models import robust_regression_model
+
+    model = robust_regression_model()
+    name, fam, obj, init, lr, lr_end = multistart_configs(vt, model)[0]
+    reset_launches()
+    t, out = wall(lambda: vt.validated_vi_multistart(
+        model, fam, init, MS_ITERS, init_params=init.repeat(MS_STARTS, 1),
+        objective_and_grad=obj, n_bound_samples=MS_BOUND, learning_rate=lr,
+        learning_rate_end=lr_end, generator=card_generator(20260819),
+        mesh=card_mesh(('chain', 'sample'), (4, 2))))
+    launches = read_launches()
+    khat = np.asarray(out['khat'])
+    d2 = np.asarray([b['d2'] for b in out['bounds']])
+    mean, sd = MS_BAND[name]
+    z = (khat.mean() - mean) / sd
+    log('multistart {} on a (4, 2) mesh of cuda:0 ({} starts x {} '
+        'iterations, n_bound {:.0e} each, float32): khat mean {!r} sd {!r} '
+        '(JAX 16-seed {} +- {}: {:+.2f} sd), best {}, d2 median {!r}'
+        .format(name, MS_STARTS, MS_ITERS, MS_BOUND, float(khat.mean()),
+                float(khat.std(ddof=1)), mean, sd, z, out['best'],
+                float(np.median(d2))))
+    part_line('(b) validated_vi_multistart(mesh=)', t)
+    log('  kernel launches: {}'.format(launches))
+    if not (np.all(np.isfinite(khat)) and np.all(np.isfinite(d2))):
+        raise AssertionError('multistart on a mesh: a khat or d2 is not '
+                             'finite')
+    if abs(z) >= 3:
+        raise AssertionError('multistart on a mesh: the mean khat is {:+.2f}'
+                             ' sd from the JAX package\'s'.format(z))
+    require_launched(launches, ('transform_score_partials',
+                                'combine_partials', 'adagrad_step'),
+                     'multistart(mesh=)')
+    # each chain group one batched run of its 4 starts
+    require_adagrad_steps(launches, [MS_ITERS] * 4, 'multistart(mesh=)')
+    return launches
+
+
+def mesh_ia_chains(vt):
+    """Phase 21 (c): the 4 RMSProp-IA regression chains on a 4-way chain
+    axis, against the same run without a mesh; then improve_with_psis on a
+    4-way sample axis (K2 and philox_normal on each shard's rows) against
+    the unsharded pass on the same Philox draws."""
+    model = regression_model()
+    fam = vt.mean_field_gaussian_variational_family(model.dim)
+    reset_launches()
+    t, (ia_param, chains, ia_log) = wall(lambda: ia_fit(
+        vt, model, fam, MESH_IA_ITERS, IA_CHAINS, torch.float32, 'cuda',
+        card_generator(0), mesh=card_mesh(('chain',), (IA_CHAINS,))))
+    t_psis, (psis, mean, cov) = wall(
+        lambda: vt.experiments.improve_with_psis_sharded(
+            model, fam, ia_param, IA_BOUND, model.true_mean, model.true_cov,
+            card_mesh(('sample',), (MESH_S,)), generator=card_generator(2)))
+    launches = read_launches()
+    want, want_mean, want_cov = vt.improve_with_psis(
+        model, fam, ia_param, IA_BOUND, model.true_mean, model.true_cov,
+        generator=card_generator(2), device='cuda')
+    # a group of one chain batches the objective's products otherwise
+    # than four chains do, so the card rounds them otherwise (on the CPU
+    # they agree bit for bit, tests/test_torch_parallel.py): in float32
+    # the chains part by a few ulps of their largest value, and in float64
+    # by what float64 rounding gives; a group given another chain's draws
+    # or rows would part by the chains' own spread
+    parted = {}
+    for dtype, n_iters, mesh_chains in (
+            (torch.float32, MESH_IA_ITERS, chains),
+            (torch.float64, MESH_IA_F64_ITERS, None)):
+        if mesh_chains is None:
+            _, mesh_chains, _ = ia_fit(
+                vt, model, fam, n_iters, IA_CHAINS, dtype, 'cuda',
+                card_generator(0), mesh=card_mesh(('chain',), (IA_CHAINS,)))
+        _, plain_chains, _ = ia_fit(vt, model, fam, n_iters, IA_CHAINS,
+                                    dtype, 'cuda', card_generator(0))
+        parted[str(dtype).split('.')[-1]] = float(
+            np.abs(mesh_chains - plain_chains).max()
+            / np.abs(plain_chains).max())
+    log('regression IA, {} chains x {} iterations on a {}-way chain axis of '
+        'cuda:0, float32: start iterations {} / {}; the chains against the '
+        'run without a mesh ({} iterations in float64), largest difference '
+        'over the largest value: {} (limits {})'.format(
+            IA_CHAINS, MESH_IA_ITERS, IA_CHAINS,
+            ia_log['start_avg_mean_iters'], ia_log['start_avg_sigma_iters'],
+            MESH_IA_F64_ITERS, json.dumps(parted), json.dumps(MESH_IA_TOL)))
+    if not all(parted[k] <= MESH_IA_TOL[k] for k in MESH_IA_TOL):
+        raise AssertionError('the IA chains on a chain mesh differ from the '
+                             'run without a mesh')
+    part_line('(c) rmsprop_IA_optimize_with_rhat(mesh=)', t)
+    diffs = dict(khat=max_rel(psis['khat'], want['khat']),
+                 mean=max_rel(mean, want_mean), cov=max_rel(cov, want_cov))
+    log('  improve_with_psis_sharded at {:.0e} on {} shards: khat {!r}, '
+        'PSIS mean error {!r}; against improve_with_psis on the same draws: '
+        '{}'.format(IA_BOUND, MESH_S, psis['khat'],
+                    float(psis['mean_error']), json.dumps(diffs)))
+    part_line('(c) improve_with_psis_sharded', t_psis)
+    log('  kernel launches: {}'.format(launches))
+    require_finite('IA chains on a mesh', dict(
+        khat=psis['khat'], mean_error=float(psis['mean_error'])))
+    # the tail candidates are the same lw bits, so khat matches to the
+    # fit's rounding; the sums over shards reassociate the moments
+    if not (diffs['khat'] <= 1e-5 and diffs['mean'] <= 1e-4
+            and diffs['cov'] <= 1e-3):
+        raise AssertionError('improve_with_psis_sharded differs from '
+                             'improve_with_psis on its draws')
+    require_launched(launches, ('gaussian_sample_score_partials',
+                                'philox_normal', 'combine_partials'),
+                     'IA chains and PSIS on a mesh')
+    return launches
+
+
+def mesh_service(vt):
+    """Phase 21 (d): /bounds?n=1e6 of the service through a 2-way mesh of
+    the card, and its latency beside the service without a mesh."""
+    from viabel_tpu_torch import serve
+    from viabel_tpu_torch.config import ExperimentConfig, build
+
+    cfg = ExperimentConfig()
+    model, family, objective = build(cfg)
+    var_param = serve._fit_from_config(cfg, model, family, objective,
+                                       device='cuda')
+    lat = {}
+    for label, devices in (('2-way mesh', ['cuda:0'] * 2), ('no mesh', [])):
+        service = serve.PosteriorService(model, family, var_param,
+                                         seed=cfg.seed, device='cuda',
+                                         mesh_devices=devices)
+        httpd, thread = serve.start_server(service, port=0,
+                                           host='127.0.0.1')
+        base = 'http://127.0.0.1:{}'.format(httpd.server_address[1])
+        path = '/bounds?n={}'.format(SERVE_BOUND)
+        try:
+            if devices:
+                reset_launches()
+                bounds = http_get(base, path)
+                launches = read_launches()
+                log('service /bounds?n={} through a 2-way sample axis of '
+                    'cuda:0: {}'.format(SERVE_BOUND, bounds))
+                log('  kernel launches: {}'.format(launches))
+                require_finite('/bounds through a mesh', bounds)
+                require_launched(launches, ('transform_score_partials',
+                                            'combine_partials'),
+                                 '/bounds through a mesh')
+            times = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                http_get(base, path)
+                times.append(time.perf_counter() - t0)
+            lat[label] = statistics.median(times)
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            thread.join(timeout=60)
+    part_line('(d) /bounds?n={} median of 5, 2-way mesh'.format(SERVE_BOUND),
+              lat['2-way mesh'])
+    part_line('(d) /bounds?n={} median of 5, no mesh'.format(SERVE_BOUND),
+              lat['no mesh'])
+    return launches
+
+
+def rank_workloads(devices):
+    """Phase 21 (e)'s work on a 2-entry mesh of `devices`, as host numpy:
+    a sharded bound pass and PSIS on eight-schools CP (K1, float32) and 2
+    RMSProp-IA regression chains on the chain axis."""
+    import viabel_tpu_torch as vt
+    from viabel_tpu_torch import parallel
+    from viabel_tpu_torch.models import eight_schools_cp_model
+
+    mesh = parallel.make_mesh(('sample',), devices=devices)
+    fam = vt.mean_field_t_variational_family(10, 40)
+    vp = torch.cat([torch.full((10,), 0.5), torch.full((10,), -0.5)]).to(
+        'cuda')
+    res, lw = parallel.sharded_all_bounds(eight_schools_cp_model(), fam, vp,
+                                          MESH_RANK_N, 4321, mesh,
+                                          return_log_weights=True)
+    slw, khat = parallel.psislw_sharded(lw, mesh)
+    rmodel = regression_model()
+    gfam = vt.mean_field_gaussian_variational_family(rmodel.dim)
+    ia = vt.rmsprop_IA_optimize_with_rhat(
+        300, vt.black_box_klvi(gfam, rmodel, N_MC, presampled=True),
+        torch.zeros(20, device='cuda'), 10, generator=card_generator(3),
+        learning_rate=IA_LR, n_optimisers=2, rhat_window=100,
+        tail_avg_iters=75, mesh=parallel.make_mesh(('chain',),
+                                                   devices=devices))
+    return dict(d2=np.asarray(res['d2']), W2=np.asarray(res['W2']),
+                lw=parallel.fetch_global(lw), slw=parallel.fetch_global(slw),
+                khat=parallel.fetch_global(khat), chains=ia[1],
+                avg=ia[6]['averaged_variational_param'])
+
+
+def rank_worker(rank, world, init, out):
+    """`chip_smoke.py --rank-worker`: phase 21 (e)'s work as `rank` of
+    `world` (1: one process on a 2-entry mesh of the card, or of two cards
+    for NCCL), saved to `out`."""
+    from viabel_tpu_torch import parallel
+    from viabel_tpu_torch.ops import _build
+
+    _build.build_all()
+    nccl = torch.cuda.device_count() > 1
+    if world > 1:
+        # a card each (NCCL) where there are two, else both on cuda:0
+        info = parallel.initialize_distributed(
+            init, world, rank,
+            local_devices=['cuda:{}'.format(rank if nccl else 0)])
+        assert info['global_devices'] == 2, info
+        devices = parallel.devices()
+    else:
+        devices = ['cuda:0', 'cuda:1'] if nccl else ['cuda:0'] * 2
+    np.savez(out, **rank_workloads(devices))
+    if world > 1:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def spawn_workers(flag, specs, names):
+    """Run ``chip_smoke.py <flag> rank world init out`` once a ``(rank,
+    world)`` of `specs`, all at once, sharing one ``file://`` rendezvous;
+    returns each one's saved npz as a dict.  Every process is stopped
+    before it returns; one that fails raises with its output."""
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_ranks_')
+    init = 'file://' + os.path.join(tmp, 'init')
+    outs = [os.path.join(tmp, n + '.npz') for n in names]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), flag, str(r), str(w),
+         init, out], stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for (r, w), out in zip(specs, outs)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=300)[0].decode())
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, text in zip(procs, logs):
+        if p.returncode != 0:
+            raise AssertionError('a rank failed:\n' + text[-3000:])
+    return [dict(np.load(o)) for o in outs]
+
+
+def mesh_ranks():
+    """Phase 21 (e): 2 ranks spawned on the one card over Gloo (over NCCL,
+    a card each, where there are two cards) against the one-process
+    2-entry mesh, bit for bit."""
+    backend = 'NCCL' if torch.cuda.device_count() > 1 else 'Gloo'
+    t0 = time.perf_counter()
+    r0, r1, one = spawn_workers('--rank-worker', ((0, 2), (1, 2), (0, 1)),
+                                ('r0', 'r1', 'one'))
+    t = time.perf_counter() - t0
+    same = all(np.array_equal(r[k], one[k]) for r in (r0, r1) for k in one)
+    log('2 ranks over {} ({} each of the 2-entry mesh) against one process '
+        'on the 2-entry mesh: bound pass of {:.0e} samples (d2 {!r}), PSIS '
+        '(khat {!r}), 2 IA chains: equal bit for bit {}'.format(
+            backend, 'a card' if backend == 'NCCL' else 'cuda:0',
+            MESH_RANK_N, float(one['d2']), float(one['khat']), same))
+    part_line('(e) 3 processes spawned, start to finish', t)
+    if not same:
+        raise AssertionError('the ranks differ from one process')
+
+
+def cards_multistart(mesh):
+    """Phase 21 (b)'s multistart (mf-t KLVI, 16 starts x 5000 iterations,
+    1e6 bound samples each, float32) on `mesh` (None: one card, no mesh):
+    the wall of its second call (the first builds the graphs) and its
+    khats and fits as host numpy."""
+    import viabel_tpu_torch as vt
+    from viabel_tpu_torch.models import robust_regression_model
+
+    model = robust_regression_model()
+    _, fam, obj, init, lr, lr_end = multistart_configs(vt, model)[0]
+
+    def run():
+        out = vt.validated_vi_multistart(
+            model, fam, init, MS_ITERS, init_params=init.repeat(MS_STARTS, 1),
+            objective_and_grad=obj, n_bound_samples=MS_BOUND,
+            learning_rate=lr, learning_rate_end=lr_end,
+            generator=card_generator(20260819), mesh=mesh)
+        return dict(khat=np.asarray(out['khat']),
+                    opt=out['opt_param'].cpu().numpy())
+
+    run()
+    return wall(run)
+
+
+def cards_worker(rank, world, init, out):
+    """`chip_smoke.py --cards-worker`: `cards_multistart` on
+    `parallel.auto_mesh`'s mesh of every card, as `rank` of `world` ranks
+    that share the host's cards out (NCCL), saved to `out`."""
+    from viabel_tpu_torch import parallel
+    from viabel_tpu_torch.ops import _build
+
+    _build.build_all()
+    info = parallel.initialize_distributed(init, world, rank)
+    mesh, note = parallel.auto_mesh(MS_STARTS, MS_BOUND)
+    t, res = cards_multistart(mesh)
+    np.savez(out, wall=t, note=note, local=info['local_devices'], **res)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def mesh_cards():
+    """``--mesh-cards`` (two cards or more; no result line): phase 21
+    (b)'s multistart on every card, in one process on `auto_mesh`'s mesh
+    of the cards and as 2 NCCL ranks holding half the cards each, against
+    the same 16 starts on one card without a mesh; each the wall of a
+    second call, the ranks' results held to the one process's bit for
+    bit."""
+    from viabel_tpu_torch import parallel
+    from viabel_tpu_torch.ops import _build
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        raise SystemExit('--mesh-cards needs two cards or more')
+    log(card_line())
+    _build.build_all()
+    t_one, one = cards_multistart(None)
+    mesh, note = parallel.auto_mesh(MS_STARTS, MS_BOUND)
+    t_mesh, got = cards_multistart(mesh)
+    ranks = spawn_workers('--cards-worker', ((0, 2), (1, 2)), ('r0', 'r1'))
+    same = all(np.array_equal(r[k], got[k]) for r in ranks for k in got)
+    log('multistart mf-t KLVI, {} starts x {} iterations, {:.0e} bound '
+        'samples each, float32, second call: one card without a mesh {:.3f}'
+        ' s; one process on {} ({}): {:.3f} s; 2 NCCL ranks of {} cards '
+        'each ({}): {} s (each rank\'s); the ranks equal the one process '
+        'bit for bit {}; khat mean {!r} without a mesh, {!r} on the mesh'
+        .format(MS_STARTS, MS_ITERS, MS_BOUND, t_one, mesh, note, t_mesh,
+                int(ranks[0]['local']), str(ranks[0]['note']),
+                [round(float(r['wall']), 3) for r in ranks], same,
+                float(one['khat'].mean()), float(got['khat'].mean())))
+    log(card_line())
+    if not same:
+        raise AssertionError('the ranks differ from one process')
+    return 0
+
+
+def mesh_path(vt):
+    """Phase 21: the mesh paths on the card, each part counted alone;
+    returns the sum of their launch counts."""
+    from viabel_tpu_torch.models import eight_schools_cp_model
+
+    model = eight_schools_cp_model()
+    fam = vt.mean_field_t_variational_family(model.dim, 40)
+    opt, total = mesh_validated_vi(vt, model, fam)
+    mesh_costs(model, fam, opt)
+    mesh_f64_checks(vt, model, fam, opt)
+    for part in (mesh_multistart, mesh_ia_chains, mesh_service):
+        add_launches(total, part(vt))
+    mesh_ranks()
+    return total
 
 
 def main():
@@ -2590,7 +3124,15 @@ def main():
 
 if __name__ == '__main__':
     try:
-        code = main()
+        workers = {'--rank-worker': rank_worker,
+                   '--cards-worker': cards_worker}
+        if sys.argv[1:2] and sys.argv[1] in workers:
+            code = workers[sys.argv[1]](int(sys.argv[2]), int(sys.argv[3]),
+                                        sys.argv[4], sys.argv[5])
+        elif sys.argv[1:] == ['--mesh-cards']:
+            code = mesh_cards()
+        else:
+            code = main()
     except Exception:  # report any phase's failure and exit non-zero
         import traceback
         traceback.print_exc()

@@ -54,6 +54,30 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                     os.path.relpath(path, ROOT)))
 
 
+@pytest.mark.parametrize('module', ['__init__', 'distributed', 'mesh',
+                                    'sharded_bounds', 'sharded_psis',
+                                    'sharded_chains'])
+def test_parallel_modules_are_scanned_and_import_no_jax(module):
+    """The multi-device layer is among the scanned sources, imports
+    neither JAX nor the JAX package (its own copies of the host helpers,
+    e.g. `mesh._largest_divisor_leq`), and exports the JAX package's
+    names."""
+    path = os.path.join(ROOT, 'viabel_tpu_torch', 'parallel',
+                        module + '.py')
+    assert path in set(_port_sources())
+    for mod in _imported_modules(path):
+        assert mod.split('.')[0] not in ('jax', 'jaxlib', 'viabel_tpu'), mod
+    with open(path) as f:
+        assert 'viabel_tpu.' not in f.read().replace('viabel_tpu/', '')
+    from viabel_tpu_torch import parallel
+    assert {'make_mesh', 'shard_over', 'fetch_global', 'auto_mesh',
+            'sharded_log_weight_stats', 'sharded_sample_stats',
+            'sharded_all_bounds', 'sharded_bound_psis',
+            'shard_chain_inputs', 'psislw_sharded', 'psisloo_sharded',
+            'sharded_psis_moments', 'initialize_distributed',
+            'local_device_count', 'process_info'} <= set(parallel.__all__)
+
+
 def test_entry_points_refuse_to_run_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     model = eight_schools_cp_model()

@@ -167,11 +167,19 @@ def test_public_optimizers_run_and_refuse_what_is_not_ported():
     assert torch.equal(rows, obj.make_draws_range(g, 0, 8,
                                                   torch.float64)[5:])
     # checkpoints, progress and objectives that sample inside the step
-    # are ported (tests/test_torch_segmented.py); the mesh and a
-    # perturbed objective, which draws its own noise, are not
-    with pytest.raises(NotImplementedError):
-        pt.rmsprop_IA_optimize_with_rhat(10, obj, init, D, mesh=object(),
-                                         **kw)
+    # are ported (tests/test_torch_segmented.py), and the mesh: its chains
+    # split over a chain axis equal the run without one
+    # (tests/test_torch_parallel.py), and a mesh without one is refused;
+    # a perturbed objective, which draws its own noise, is not ported
+    from viabel_tpu_torch import parallel
+    on_mesh = pt.rmsprop_IA_optimize_with_rhat(
+        120, obj, init, D, generator=torch.Generator().manual_seed(1),
+        mesh=parallel.make_mesh(('chain',), devices=['cpu'] * 2), **kw)
+    np.testing.assert_array_equal(on_mesh[1], outs[0][1])
+    with pytest.raises(ValueError, match="axis named 'chain'"):
+        pt.rmsprop_IA_optimize_with_rhat(
+            10, obj, init, D, mesh=parallel.make_mesh(
+                ('sample',), devices=['cpu'] * 2), **kw)
     with pytest.raises(NotImplementedError):
         pt.adam_IA_optimize_with_rhat(
             10, pt.perturbed_black_box_vi(fam, tm, 10), init, D, **kw)

@@ -220,8 +220,13 @@ def test_hmc_core_phases_and_mass():
     finally:
         mcmc._phase = real
     (a1, o1), (a2, o2), (a3, o3) = calls
+
+    def same(a, b):  # the same values, bit for bit
+        return torch.equal(a, b)
+
     assert [a[5] for a in (a1, a2, a3)] == [True, True, False]
-    assert all(a[2] is p for a, p in zip((a1, a2, a3), phases))
+    assert all(all(same(t, u) for t, u in zip(a[2], p))
+               for a, p in zip((a1, a2, a3), phases))
     torch.testing.assert_close(a1[3], torch.full((C,), 0.1,
                                                  dtype=torch.float64))
     torch.testing.assert_close(a1[4], torch.ones(d, dtype=torch.float64))
@@ -229,10 +234,11 @@ def test_hmc_core_phases_and_mass():
                                   axis=0), 1e-8)
     np.testing.assert_allclose(inv_mass.numpy(), want_mass, rtol=1e-14)
     for args in (a2, a3):
-        assert args[4] is inv_mass
-    assert a2[1] is o1[1] and a2[3] is o1[2]
-    assert a3[1] is o2[1] and a3[3] is o2[2]
-    assert samples is o3[0] and eps is o2[2] and accept is o3[3]
+        assert same(args[4], inv_mass)
+    assert same(a2[1], o1[1]) and same(a2[3], o1[2])
+    assert same(a3[1], o2[1]) and same(a3[3], o2[2])
+    assert (same(samples, o3[0]) and same(eps, o2[2])
+            and same(accept, o3[3]))
     assert samples.shape == (C, 30, d)
 
 
@@ -289,10 +295,19 @@ def test_hmc_unconverged_raises():
 
 
 def test_hmc_mesh_raises():
+    """A mesh without a chain axis, or whose chain axis does not divide
+    the chains, raises (the chain-sharded run itself is held to the
+    unsharded one in tests/test_torch_parallel.py)."""
+    from viabel_tpu_torch import parallel
     model = robust_regression_model()
-    with pytest.raises(NotImplementedError, match='mesh'):
-        pt.hmc_sample(model.log_prob, np.zeros(2), mesh=object(),
-                      device='cpu')
+    with pytest.raises(ValueError, match='mesh'):
+        pt.hmc_sample(model.log_prob, np.zeros(2), device='cpu',
+                      mesh=parallel.make_mesh(('sample',),
+                                              devices=['cpu'] * 2))
+    with pytest.raises(ValueError, match='mesh'):
+        pt.hmc_sample(model.log_prob, np.zeros(2), device='cpu',
+                      n_chains=3, mesh=parallel.make_mesh(
+                          ('chain',), devices=['cpu'] * 2))
 
 
 def test_host_density_runs_eagerly_and_matches_the_torch_model():

@@ -285,10 +285,14 @@ def test_sweep_validates_inputs():
                        (dict(learning_rates=[]), 'non-empty')):
         with pytest.raises(ValueError, match=match):
             pt.validated_vi_sweep(model, fam, init, 100, device='cpu', **bad)
+    # a mesh without the run axis is refused (the batches on a mesh are
+    # held in tests/test_torch_parallel.py)
+    from viabel_tpu_torch import parallel
+    sample_only = parallel.make_mesh(('sample',), devices=['cpu'] * 2)
     for fn, kw in ((pt.validated_vi_sweep, dict(learning_rates=[0.01])),
                    (pt.validated_vi_multistart, {})):
-        with pytest.raises(NotImplementedError):
-            fn(model, fam, init, 10, mesh=object(), device='cpu', **kw)
+        with pytest.raises(ValueError, match="axis named 'chain'"):
+            fn(model, fam, init, 10, mesh=sample_only, device='cpu', **kw)
 
 
 @pytest.mark.parametrize('family_name', ['mf_gaussian', 'mf_t',

@@ -154,9 +154,21 @@ def test_low_df_family_uses_empirical_moments_and_alpha_3():
 
 
 def test_mesh_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        pt.validated_vi(tcp(), pt.mean_field_t_variational_family(10, 40),
-                        torch.zeros(20), 10, mesh=object(), device='cpu')
+    """The mesh is ported now (tests/test_torch_parallel.py holds it to
+    the unsharded run): a mesh of the sample axis runs and places the
+    log-weights on it, and a mesh without that axis is refused."""
+    from viabel_tpu_torch import parallel
+    fam = pt.mean_field_t_variational_family(10, 40)
+    out = pt.validated_vi(tcp(), fam, torch.zeros(20), 10,
+                          n_bound_samples=2000, device='cpu',
+                          mesh=parallel.make_mesh(('sample',),
+                                                  devices=['cpu'] * 2))
+    assert isinstance(out['log_weights'], parallel.Sharded)
+    assert parallel.fetch_global(out['log_weights']).shape == (2000,)
+    with pytest.raises(ValueError, match="axis named 'sample'"):
+        pt.validated_vi(tcp(), fam, torch.zeros(20), 10, device='cpu',
+                        mesh=parallel.make_mesh(('chain',),
+                                                devices=['cpu'] * 2))
 
 
 def test_get_samples_and_log_weights_on_cpu():

@@ -21,7 +21,10 @@ normal-mixture model; and the HTTP posterior service
 (``python -m viabel_tpu_torch.serve``, `serve`), the in-repo HMC ground
 truth (`mcmc`: `hmc_sample`, `hmc_ground_truth`) and host-side log
 densities (`models.make_callback_log_density`, the C++ densities of
-`native`).  The bound
+`native`); and the multi-device layer `parallel` (meshes of devices and
+of ranks, the bound pass and PSIS split over a ``sample`` axis, chains and
+batched runs over a ``chain`` axis) behind the ``mesh=`` of every entry
+point.  The bound
 pass runs on hand-written CUDA kernels: K1, K3 and the combine in
 ``csrc/lw_stats.cu`` (`ops.lw_stats`), and K2, which draws a Gaussian q's
 samples in-kernel from a Philox stream, with ``philox_normal`` in

@@ -13,9 +13,13 @@ PyTorch port of viabel_tpu/__main__.py:
 
 The flags, their validation messages and the printed lines are the JAX
 package's, with two differences.  ``--device`` (default ``cuda``) names
-the device: without a card, and without ``--device cpu``, ``run`` fails.
-The port has no device mesh, so the JAX package's ``mesh:`` and ``note:``
-placement lines are not printed.
+the device, and without a card, and without ``--device cpu``, ``run``
+fails.  On the card ``run`` places a single run's work as the JAX command
+line does, by `parallel.auto_mesh` over every rank's cards (one card: no
+mesh and no line), and its ``mesh:`` or ``note:`` line says where; the
+batched pipelines (``--starts``, ``--sweep-lr``) stay on one card, with a
+``note:`` line where there are more (`_report_batch`).  ``--device cpu``
+runs on one device.
 
 Examples
 --------
@@ -42,6 +46,32 @@ def _device(args):
         sys.exit(_NO_CARD)
     from ._device import resolve_device
     return resolve_device(device)
+
+
+def _mesh_devices(device):
+    """The devices `auto_mesh` may place a run on: every rank's cards
+    for a run on the card, none for a CPU run."""
+    if device.type != 'cuda':
+        return []
+    from .parallel import devices
+    return devices()
+
+
+def _report_mesh(mesh, note, context=''):
+    """Show `parallel.auto_mesh`'s placement, or why there is none
+    (viabel_tpu/__main__.py:24-29): attached devices are never left out
+    without a word."""
+    if note:
+        print(('mesh: ' if mesh is not None else 'note: ') + note + context)
+
+
+def _report_batch(device):
+    """A batch stays on one card: the batched optimizer is launch-bound,
+    so a card runs 16 starts as fast as 4 and splitting them over cards
+    gains nothing (PERF.md, section 5).  Where there are more cards, say so."""
+    n = len(_mesh_devices(device))
+    if n > 1:
+        print('note: {} devices; the batch runs on one'.format(n))
 
 
 def _host(a):
@@ -96,12 +126,18 @@ def _cmd_run(args):
             sys.exit('--fused does not support --checkpoint-path (the '
                      'fused program is a single device call; use the '
                      'non-fused path for resumable runs)')
+        from .parallel import auto_mesh
         from .pipeline import validated_vi
+        # the bound pass, PSIS and the moments split over every card
+        mesh, note = auto_mesh(1, cfg.bound_samples,
+                               devices=_mesh_devices(device))
+        _report_mesh(mesh, note)
         out = validated_vi(
             model, family, init, cfg.n_iters, objective_and_grad=objective,
             n_bound_samples=cfg.bound_samples, generator=opt_gen,
             learning_rate=cfg.learning_rate,
-            learning_rate_end=cfg.learning_rate_end, device=device)
+            learning_rate_end=cfg.learning_rate_end, mesh=mesh,
+            device=device)
         values = _host(out['value_history'])
         print('final loss (tail mean): {:.6g}'.format(
             float(values[-max(len(values) // 10, 1):].mean())))
@@ -135,21 +171,37 @@ def _cmd_run(args):
                               model.true_cov, verbose=True)
 
     if cfg.bound_samples:
+        from .parallel import auto_mesh
+        mesh, note = auto_mesh(1, cfg.bound_samples,
+                               devices=_mesh_devices(device))
+        _report_mesh(mesh, note, ' (bound stage)')
         # None for families without a finite closed-form 4th moment (t
         # with df <= 4): the bounds then use the samples' central moments
         mb = family_moment_bounds(family, opt_param)
-        samples, lw = get_samples_and_log_weights(
-            model, family, opt_param, cfg.bound_samples, bound_gen, device)
-        res = all_bounds(lw, samples=samples if mb is None else None,
-                         q_var=_host(cov), moment_bound_fn=mb)
+        if mesh is not None:
+            from .ops.philox import philox_seed
+            from .parallel import psislw_sharded, sharded_all_bounds
+            res, lw = sharded_all_bounds(
+                model, family, opt_param, cfg.bound_samples,
+                philox_seed(bound_gen), mesh, q_var=_host(cov),
+                moment_bound_fn=mb, return_log_weights=True)
+            khat = psislw_sharded(lw, mesh)[1]
+        else:
+            samples, lw = get_samples_and_log_weights(
+                model, family, opt_param, cfg.bound_samples, bound_gen,
+                device)
+            res = all_bounds(lw, samples=samples if mb is None else None,
+                             q_var=_host(cov), moment_bound_fn=mb)
+            khat = psislw(lw)[1]
         print_bounds(res)
-        print(_khat_line(psislw(lw)[1]))
+        print(_khat_line(khat))
 
 
 def _run_batched(args, cfg, model, family, objective, opt_gen, device):
     """``run --starts K`` / ``run --sweep-lr a,b,c``: the batched pipelines
-    `validated_vi_multistart` and `validated_vi_sweep`
-    (viabel_tpu/__main__.py:166-283, without the mesh)."""
+    `validated_vi_multistart` and `validated_vi_sweep` on one device
+    (viabel_tpu/__main__.py:163-283, which places them on a mesh;
+    `_report_batch` says why the port does not)."""
     from .experiments import check_approx_accuracy, print_bounds
 
     n_starts = getattr(args, 'starts', None)
@@ -179,6 +231,7 @@ def _run_batched(args, cfg, model, family, objective, opt_gen, device):
 
     if n_starts:
         from .pipeline import validated_vi_multistart
+        _report_batch(device)
         out = validated_vi_multistart(
             model, family, init, cfg.n_iters, n_starts=n_starts,
             perturb_scale=args.perturb_scale,
@@ -214,6 +267,7 @@ def _run_batched(args, cfg, model, family, objective, opt_gen, device):
             if bad:
                 sys.exit('each end rate must satisfy 0 < end < rate; got '
                          'end {:g} for rate {:g}'.format(*bad[0]))
+        _report_batch(device)
         out = validated_vi_sweep(
             model, family, init, cfg.n_iters, learning_rates=lrs,
             learning_rate_ends=lr_ends, **common)

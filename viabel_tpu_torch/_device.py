@@ -56,6 +56,14 @@ def between_captures():
         yield
 
 
+def on_device(device):
+    """The context of work on `device`: that card current, or nothing for
+    the CPU."""
+    if device.type == 'cuda':
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
 def fp32_matmul_policy():
     """Forbid TF32 in matrix products and convolutions (process-wide)."""
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -836,11 +836,14 @@ struct LoadedDraws {
   }
 };
 
-// K2: standard normal z made in registers from the Philox stream
+// K2: standard normal z made in registers from the Philox stream; the
+// launch's sample i is sample start + i of the stream, so a launch may
+// score any row range of it
 template <typename T>
 struct PhiloxDraws {
   uint2 key;
   uint32_t offset;
+  uint64_t start;
 
   template <int D_FIXED>
   __host__ __device__ static constexpr bool staged() {
@@ -849,7 +852,7 @@ struct PhiloxDraws {
 
   template <int MAXD, int D_FIXED>
   __device__ __forceinline__ void fill(int64_t i, int d, T (&out)[MAXD]) const {
-    philox_normals<T, MAXD>(uint64_t(i), offset, key, d, out);
+    philox_normals<T, MAXD>(start + uint64_t(i), offset, key, d, out);
   }
 
   template <int MAXD>

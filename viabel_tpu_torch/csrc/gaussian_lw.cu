@@ -12,7 +12,9 @@
 //   fused_gaussian_lw_stats (viabel_tpu/ops/sample_score.py:223-282,
 //   _fused_kernel :193-220, its PRNG :152-168, at 2e6dc2c^).  Each sample's
 //   d standard normals come from the Philox4x32-10 stream of (seed, offset)
-//   in registers (bound_pass.cuh); then x = mean + exp(log_std) z,
+//   in registers (bound_pass.cuh), sample i of the launch being sample
+//   start + i of the stream (a shard of a sharded pass scores its own row
+//   range); then x = mean + exp(log_std) z,
 //   log q = -0.5 sum(z^2 + log 2 pi) - sum(log_std), log p(x) from the
 //   model's device function, lw written, and one partials row per chunk
 //   in K1's layout, which combine_partials (lw_stats.cu) reduces.  The TPU
@@ -203,9 +205,10 @@ int grid_for(int64_t work) {
 template <typename T>
 int launch_gaussian_score(const void* mean, const void* log_std, long long n,
                           int d, unsigned long long seed, unsigned int offset,
-                          double alpha, const ModelSpec* spec, void* lw,
-                          void* partials, void* stream) {
-  PhiloxDraws<T> draws{key_of(seed), offset};
+                          unsigned long long start, double alpha,
+                          const ModelSpec* spec, void* lw, void* partials,
+                          void* stream) {
+  PhiloxDraws<T> draws{key_of(seed), offset, start};
   return launch_score<T>(draws, mean, log_std, d, spec, n, alpha, lw,
                          partials, stream);
 }
@@ -230,21 +233,23 @@ extern "C" {
 int gaussian_sample_score_partials_f32(const void* mean, const void* log_std,
                                        long long n, int d,
                                        unsigned long long seed,
-                                       unsigned int offset, double alpha,
+                                       unsigned int offset,
+                                       unsigned long long start, double alpha,
                                        const ModelSpec* spec, void* lw,
                                        void* partials, void* stream) {
-  return launch_gaussian_score<float>(mean, log_std, n, d, seed, offset, alpha,
-                                      spec, lw, partials, stream);
+  return launch_gaussian_score<float>(mean, log_std, n, d, seed, offset, start,
+                                   alpha, spec, lw, partials, stream);
 }
 
 int gaussian_sample_score_partials_f64(const void* mean, const void* log_std,
                                        long long n, int d,
                                        unsigned long long seed,
-                                       unsigned int offset, double alpha,
+                                       unsigned int offset,
+                                       unsigned long long start, double alpha,
                                        const ModelSpec* spec, void* lw,
                                        void* partials, void* stream) {
-  return launch_gaussian_score<double>(mean, log_std, n, d, seed, offset,
-                                       alpha, spec, lw, partials, stream);
+  return launch_gaussian_score<double>(mean, log_std, n, d, seed, offset, start,
+                                   alpha, spec, lw, partials, stream);
 }
 
 int philox_normal_f32(long long n, int d, unsigned long long start,

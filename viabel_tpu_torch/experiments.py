@@ -4,8 +4,8 @@ PSIS-correct.
 PyTorch port of viabel_tpu/experiments.py:39-184 and 283-387 (the
 reporting helpers, `get_samples_and_log_weights`, `psis_correction`,
 `improve_with_psis`, and `run_experiment`: KLVI then CHIVI, each followed
-by a bound pass and PSIS).  The plots and `improve_with_psis_sharded` are
-not ported.
+by a bound pass and PSIS) and `improve_with_psis_sharded` (the same PSIS
+correction split over a mesh, `parallel`).  The plots are not ported.
 
 `draw_and_score` and `get_samples_and_log_weights` decide how a bound
 pass scores its samples:
@@ -42,7 +42,7 @@ from .psis import psislw, weighted_moments
 __all__ = [
     'print_bounds', 'check_accuracy', 'check_approx_accuracy',
     'get_samples_and_log_weights', 'draw_and_score', 'psis_correction',
-    'improve_with_psis', 'run_experiment',
+    'improve_with_psis', 'improve_with_psis_sharded', 'run_experiment',
 ]
 
 # families whose transform is mean + exp(log_scale) * z with a base density
@@ -227,6 +227,40 @@ def _psis_results(samples, slw, khat, true_mean, true_cov, transform,
                          verbose)
     res['khat'] = float(khat)
     return res, approx_mean, approx_cov
+
+
+def improve_with_psis_sharded(log_density, var_family, var_param, n_samples,
+                              true_mean, true_cov, mesh, verbose=False,
+                              generator=None):
+    """`improve_with_psis` split over the ``sample`` axis of `mesh`: each
+    shard draws and scores its samples on its device, only the weight tail
+    is gathered for the GPD fit, and the corrected moments are summed over
+    shards (viabel_tpu/experiments.py:187-214).  The pass's seed is drawn
+    from `generator` (default: seed 0 on this rank's first device of the
+    mesh) as `get_samples_and_log_weights` draws it, so a mean-field
+    Gaussian q of a kernel-tagged model scores the same draws as
+    `improve_with_psis` with the same generator, each shard its rows of
+    the stream.  Returns ``(results with khat, approx_mean, approx_cov)``
+    in numpy."""
+    from .parallel import (psislw_sharded, sharded_all_bounds,
+                           sharded_psis_moments)
+    home = mesh.home()
+    if generator is None:
+        generator = default_generator(home)
+    var_param = torch.as_tensor(var_param, device=home)
+    _, lw, samples = sharded_all_bounds(
+        log_density, var_family, var_param, n_samples,
+        philox_seed(generator), mesh,
+        moment_bound_fn=family_moment_bounds(var_family, var_param),
+        return_log_weights=True, return_samples=True)
+    slw, khat = psislw_sharded(lw, mesh)
+    mean, cov = sharded_psis_moments(samples, slw, mesh)
+    if verbose:
+        print('khat = {:.3g}'.format(float(khat)))
+    mean, cov = _host(mean), _host(cov)
+    res = check_accuracy(true_mean, true_cov, mean, cov, verbose)
+    res['khat'] = float(khat)
+    return res, mean, cov
 
 
 def _stage_banner(name):

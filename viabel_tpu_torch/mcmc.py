@@ -35,7 +35,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ._device import (capture, default_generator, pick_driver,
+from ._device import (capture, default_generator, on_device, pick_driver,
                       resolve_device)
 from .diagnostics import compute_R_hat
 from .models.external import is_host_callback
@@ -237,30 +237,59 @@ def _phase(log_prob, q0, draws, eps0, inv_mass, adapt, target_accept,
     return st.qs, st.q, eps, st.accepts.mean(dim=1)
 
 
-def _hmc_core(log_prob, q0, phase_draws, eps0, max_steps, target_accept):
+def _phases(log_prob, mesh, q0, draws, eps0, inv_mass, adapt, target_accept,
+            max_steps):
+    """`_phase` of every chain: one group on `q0`'s device, or with `mesh`
+    its ``chain`` axis groups (`optimizers._placement`), each on its
+    device; every rank gathers the groups' ``(positions, final q, step
+    sizes, accept)`` in chain order, on `q0`'s device."""
+    from .optimizers import _gather_groups, _placement
+    C, d = q0.shape
+    n = draws.lengths.shape[0]
+    groups, devices = _placement(mesh, 'chain', C, q0.device)
+    local = {}
+    for g, dev in devices.items():
+        lo, hi, _ = groups[g]
+        with on_device(dev):
+            part = _Draws(*(t[:, lo:hi].to(dev) for t in draws))
+            qs, q, eps, accept = _phase(
+                log_prob, q0[lo:hi].to(dev), part, eps0[lo:hi].to(dev),
+                inv_mass.to(dev), adapt, target_accept, max_steps)
+            local[g] = torch.cat([qs.reshape(hi - lo, -1), q, eps[:, None],
+                                  accept[:, None]], dim=1)
+    qs, q, eps, accept = _gather_groups(groups, local, (n * d, d, 1, 1),
+                                        q0.dtype, q0.device)
+    return qs.reshape(C, n, d), q, eps[:, 0], accept[:, 0]
+
+
+def _hmc_core(log_prob, q0, phase_draws, eps0, max_steps, target_accept,
+              mesh=None):
     """The three phases from the chains' initial positions `q0` ``(chains,
     d)`` and each phase's `_Draws` (viabel_tpu/mcmc.py:203-236): warmup I
     adapts the step size under unit mass; the inverse mass is the pooled
     variance of the second half of its draws (at least 1e-8); warmup II
     re-adapts the step size under that mass; sampling runs at each chain's
     averaged step size.  The parity tests feed it the draws the JAX
-    package derives from its keys.  Returns ``(samples (chains, n_samples,
-    d), step sizes, inv_mass, mean accept probability a chain)`` as
-    tensors."""
+    package derives from its keys.  With `mesh` each phase's chains split
+    over its ``chain`` axis (`_phases`).  Returns ``(samples
+    (chains, n_samples, d), step sizes, inv_mass, mean accept probability
+    a chain)`` as tensors."""
     draws_w1, draws_w2, draws_s = phase_draws
     C, d = q0.shape
     eps_init = torch.full((C,), float(eps0), dtype=q0.dtype,
                           device=q0.device)
     unit_mass = torch.ones(d, dtype=q0.dtype, device=q0.device)
-    qs, q1, eps1, _ = _phase(log_prob, q0, draws_w1, eps_init, unit_mass,
-                             True, target_accept, max_steps)
+
+    def phase(q, draws, eps, inv_mass, adapt):
+        return _phases(log_prob, mesh, q, draws, eps, inv_mass, adapt,
+                       target_accept, max_steps)
+
+    qs, q1, eps1, _ = phase(q0, draws_w1, eps_init, unit_mass, True)
     n_w1 = qs.shape[1]
     inv_mass = torch.var(qs[:, n_w1 // 2:].reshape(-1, d), dim=0,
                          correction=0).clamp_min(1e-8)
-    _, q2, eps2, _ = _phase(log_prob, q1, draws_w2, eps1, inv_mass, True,
-                            target_accept, max_steps)
-    samples, _, _, accept = _phase(log_prob, q2, draws_s, eps2, inv_mass,
-                                   False, target_accept, max_steps)
+    _, q2, eps2, _ = phase(q1, draws_w2, eps1, inv_mass, True)
+    samples, _, _, accept = phase(q2, draws_s, eps2, inv_mass, False)
     return samples, eps2, inv_mass, accept
 
 
@@ -290,7 +319,13 @@ def hmc_sample(log_prob, init, generator=None, n_samples=5000,
     device : the device to run on (None: the CUDA card).  On the card each
         transition is one replayed CUDA graph; a host-side log density
         (`models.make_callback_log_density`) runs eagerly.
-    mesh : not ported; raises NotImplementedError.
+    mesh : a `parallel.Mesh` with a ``chain`` axis that divides
+        `n_chains`, optional.  The chains split over it: each device
+        group runs its chains' phases on its device (on the card, each
+        device captures and replays its own transition graph) from the
+        same draws as without a mesh, and the pooled mass and the results
+        are gathered on every rank.  `device` is then this rank's first
+        device of the mesh.
 
     Returns
     -------
@@ -299,9 +334,17 @@ def hmc_sample(log_prob, init, generator=None, n_samples=5000,
     ``accept_rate`` (float), ``step_size`` (n_chains,), ``inv_mass`` (d,).
     """
     if mesh is not None:
-        raise NotImplementedError(
-            'mesh= is not ported yet: the chain-sharded HMC comes with the '
-            'port of parallel/')
+        if 'chain' not in mesh.axis_names:
+            raise ValueError(
+                "hmc_sample partitions chains over a mesh axis named "
+                "'chain'; the given mesh has axes {} (build it with "
+                "make_mesh(axis_names=('chain',), ...))".format(
+                    mesh.axis_names))
+        if n_chains % mesh.shape['chain']:
+            raise ValueError('the mesh chain axis size ({}) must divide '
+                             'n_chains ({})'.format(mesh.shape['chain'],
+                                                    n_chains))
+        device = mesh.home()
     device = resolve_device(device)
     if generator is None:
         generator = default_generator(device)
@@ -316,7 +359,7 @@ def hmc_sample(log_prob, init, generator=None, n_samples=5000,
     phase_draws = [_phase_draws(generator, n, n_chains, d, max_steps, dtype)
                    for n in (n_w1, n_w2, n_samples)]
     samples, eps, inv_mass, accept = _hmc_core(
-        log_prob, q0, phase_draws, eps0, max_steps, target_accept)
+        log_prob, q0, phase_draws, eps0, max_steps, target_accept, mesh)
     samples = samples.cpu().numpy()
     flat = samples.reshape(-1, d)
     _, r_hat = compute_R_hat(samples, warmup=0)

@@ -52,7 +52,7 @@ _ptr = ctypes.c_void_p
 _u64, _u32 = ctypes.c_ulonglong, ctypes.c_uint
 _SIGNATURES = {
     'gaussian_sample_score_partials': [
-        _ptr, _ptr, ctypes.c_longlong, ctypes.c_int, _u64, _u32,
+        _ptr, _ptr, ctypes.c_longlong, ctypes.c_int, _u64, _u32, _u64,
         ctypes.c_double, ctypes.POINTER(_lw.ModelSpec), _ptr, _ptr],
     'philox_normal': [ctypes.c_longlong, ctypes.c_int, _u64, _u64, _u32,
                       _ptr],
@@ -79,21 +79,23 @@ def _launch(name, device, dtype, *args):
 
 
 def gaussian_sample_score_partials_plain(mean, log_std, n, seed, offset,
-                                         kernel, kernel_data, alpha=2.0):
+                                         kernel, kernel_data, alpha=2.0,
+                                         start=0):
     """Plain version of K2: the plain Philox z, then K1's plain version
     with a standard normal base."""
-    z = philox_normal_plain(n, mean.shape[0], seed, offset, 0, mean.dtype,
-                            mean.device)
+    z = philox_normal_plain(n, mean.shape[0], seed, offset, start,
+                            mean.dtype, mean.device)
     return _lw.transform_score_partials_plain(z, mean, log_std, kernel,
                                               kernel_data, None, alpha)
 
 
 def gaussian_sample_score_partials(mean, log_std, n, seed, offset, kernel,
-                                   kernel_data, alpha=2.0):
+                                   kernel_data, alpha=2.0, start=0):
     """K2: ``(lw (n,), partials (ceil(n / CHUNK), 6))`` for `n` draws of
-    ``N(mean, diag(exp(log_std))^2)`` from the Philox stream of
-    ``(seed, offset)``, scored by the model density named `kernel` (its
-    data `kernel_data`).  Runs where `mean` lies."""
+    ``N(mean, diag(exp(log_std))^2)``, samples ``start .. start + n - 1``
+    of the Philox stream of ``(seed, offset)`` (the rows `philox_normal`
+    gives for the same `start`), scored by the model density named
+    `kernel` (its data `kernel_data`).  Runs where `mean` lies."""
     _lw.check_tensor('mean', mean, None, None)
     if mean.dim() != 1:
         raise ValueError('mean must be 1-D')
@@ -101,18 +103,19 @@ def gaussian_sample_score_partials(mean, log_std, n, seed, offset, kernel,
     _lw.check_tensor('log_std', log_std, mean.dtype, mean.device, (d,))
     if n <= 0:
         raise ValueError('n must be positive, got {}'.format(n))
-    _check_stream(seed, offset, 0)
+    _check_stream(seed, offset, start)
     _lw.check_kernel_model(kernel, kernel_data, d, mean.element_size())
     if mean.device.type == 'cpu':
         return gaussian_sample_score_partials_plain(
-            mean, log_std, n, seed, offset, kernel, kernel_data, alpha)
+            mean, log_std, n, seed, offset, kernel, kernel_data, alpha,
+            start)
     spec, _data = _lw.model_spec(kernel, kernel_data, mean.device,
                                  mean.dtype)
     lw = torch.empty((n,), dtype=mean.dtype, device=mean.device)
     partials = torch.empty((_lw.n_chunks(n), _lw.NPART), dtype=mean.dtype,
                            device=mean.device)
     _launch('gaussian_sample_score_partials', mean.device, mean.dtype,
-            mean.data_ptr(), log_std.data_ptr(), n, d, seed, offset,
+            mean.data_ptr(), log_std.data_ptr(), n, d, seed, offset, start,
             float(alpha), ctypes.byref(spec), lw.data_ptr(),
             partials.data_ptr())
     return lw, partials

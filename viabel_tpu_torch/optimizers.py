@@ -26,14 +26,16 @@ generator (each chain's from the chain's), so iteration i's draws depend
 on nothing before it, and a segmented or resumed run draws what the whole
 run drew.  Progress lines (``progress=True``) and the segmented chain runs
 with checkpoints (``checkpoint_path=``, `checkpoint.py`) follow the JAX
-package's; the mesh-sharded chain runs (``mesh=``) are not ported.
+package's.  Given a mesh (``mesh=``), the chains split over its ``chain``
+axis, each device group running its chains as one batch on its device
+(`parallel.sharded_chains`), and every rank gathers the results.
 """
 import os
 
 import numpy as np
 import torch
 
-from ._device import (capture, default_generator, pick_driver,
+from ._device import (capture, default_generator, on_device, pick_driver,
                       resolve_device)
 from .diagnostics import (compute_R_hat_adaptive, compute_R_hat_halfway,
                           stochastic_iterate_averaging)
@@ -223,13 +225,23 @@ def _learning_rates(n_iters, learning_rate, learning_rate_end, dtype):
                         dtype=torch.float64).to(dtype)
 
 
+def _check_ran(counter, end):
+    """Raise unless the device counter of a run reached `end`."""
+    if int(counter[0]) != end:
+        raise RuntimeError('the adagrad run stopped at iteration {} of {}'
+                           .format(int(counter[0]), end))
+
+
 def _advance(obj, state, source, start, iters, window, driver=None,
-             report=None):
+             report=None, pending=None):
     """Run `state` (one run or a batch, at iteration `start`) through
     iterations ``start .. start + iters - 1`` of the body, by the driver
     that `_device.pick_driver` picks (see `_adagrad_run`),
-    and check that every iteration ran.  `source` is a presampled
-    objective's whole-run block of draws, or an `_IterationGenerator`."""
+    and check that every iteration ran (`_check_ran`).  `source` is a
+    presampled objective's whole-run block of draws, or an
+    `_IterationGenerator`.  Given a list `pending`, the check's arguments
+    are appended to it instead, so that nothing waits for the device and
+    runs on other devices can be started meanwhile."""
     driver = pick_driver(driver, state.param.device,
                          getattr(obj, 'host_callback', False),
                          getattr(obj, 'presampled', False))
@@ -237,9 +249,10 @@ def _advance(obj, state, source, start, iters, window, driver=None,
         _adagrad_graph(obj, state, source, start, iters, window, report)
     else:
         _adagrad_eager(obj, state, source, start, iters, report)
-    if int(state.counter[0]) != start + iters:
-        raise RuntimeError('the adagrad run stopped at iteration {} of {}'
-                           .format(int(state.counter[0]), start + iters))
+    if pending is None:
+        _check_ran(state.counter, start + iters)
+    else:
+        pending.append((state.counter, start + iters))
 
 
 def _source(draws, device):
@@ -250,14 +263,15 @@ def _source(draws, device):
     return draws
 
 
-def _drive(obj, state, draws, n_iters, window, driver, progress=False):
+def _drive(obj, state, draws, n_iters, window, driver, progress=False,
+           pending=None):
     """Run `state` (one run or a batch) through its `n_iters` iterations
-    (`_advance`) from `draws` (a presampled block, or a generator), with
-    the progress lines when `progress`; returns ``(values, log_norms,
-    params, tail_mean)``."""
+    (`_advance`, `pending` as there) from `draws` (a presampled block, or a
+    generator), with the progress lines when `progress`; returns
+    ``(values, log_norms, params, tail_mean)``."""
     report = _progress(n_iters, state.values) if progress else None
     _advance(obj, state, _source(draws, state.param.device), 0, n_iters,
-             window, driver, report)
+             window, driver, report, pending)
     tail_mean = state.tail_sum / (n_iters - state.tail_start)
     return state.values, state.log_norms, state.params, tail_mean
 
@@ -298,7 +312,7 @@ def _adagrad_run(obj, n_iters, window, learning_rate, epsilon,
 
 def _adagrad_runs(objective_and_grad, has_log_norm, n_iters, window,
                   lr_tables, epsilon, inits, draws, keep_history=False,
-                  driver=None):
+                  driver=None, pending=None):
     """K adagrad runs at once, the counterpart of the JAX package's
     vmapped scan (viabel_tpu/pipeline.py:399-412, 732-745).
 
@@ -313,20 +327,21 @@ def _adagrad_runs(objective_and_grad, has_log_norm, n_iters, window,
     vmapped: `draws` is then a list of K generators and the runs go one
     after another, eagerly, each as `_adagrad_run` would run it.  Returns
     ``(values (K, n_iters), log_norms (K, n_iters), params (K, n_iters,
-    P) or None, tail_means (K, P))``.
+    P) or None, tail_means (K, P))``.  `pending` is `_advance`'s.
     """
     if not getattr(objective_and_grad, 'presampled', False):
         obj = _wrap_objective(objective_and_grad, has_log_norm)
         outs = [_drive(obj, new_adagrad_state(init, lr, window, epsilon,
                                               keep_history),
-                       generator, n_iters, window, driver)
+                       generator, n_iters, window, driver, pending=pending)
                 for init, lr, generator in zip(inits, lr_tables, draws)]
         return tuple(None if parts[0] is None else torch.stack(parts)
                      for parts in zip(*outs))
     step = _batched_step(objective_and_grad, has_log_norm)
     state = new_adagrad_state(inits, lr_tables, window, epsilon,
                               keep_history)
-    return _drive(step, state, draws, n_iters, window, driver)
+    return _drive(step, state, draws, n_iters, window, driver,
+                  pending=pending)
 
 
 def _run_draws(objective_and_grad, obj, generator, n_iters, dtype, draws):
@@ -516,24 +531,98 @@ def _chains_segment(step, kind, n_iters, learning_rate, epsilon,
 
 def _chains_run(step, kind, n_iters, learning_rate, epsilon,
                 learning_rate_end, inits, draws, hist_cap=None,
-                avg_start=None):
+                avg_start=None, mesh=None, axis='chain'):
     """Every chain's whole run, one segment of `n_iters`
-    (viabel_tpu/optimizers.py:429-487).
+    (viabel_tpu/optimizers.py:429-487, 792-842).
 
     `step` is `_batched_step`'s function, `inits` the ``(C, P)`` chain
     inits and `draws` the ``(C, n_iters, n_mc, ...)`` block of draws (the
-    presampled block, or injected draws) or ``draw(i)``, a function of the
-    iteration (`_generator_draws`).  With `hist_cap` below `n_iters` the
-    history keeps the last `hist_cap` entries (a ring buffer), in
-    chronological order.  Returns ``((values, log_norms, chains),
-    final_params, avg_params)``.
+    presampled block, or injected draws), ``draw(i)``, a function of the
+    iteration (`_generator_draws`), or `_GroupDraws`.  With `hist_cap`
+    below `n_iters` the history keeps the last `hist_cap` entries (a ring
+    buffer), in chronological order.  The chains run as one batch on
+    `inits`' device, or with `mesh` as its `axis` groups (`_placement`),
+    each group's batch on its device.  Returns ``((values, log_norms,
+    chains), final_params, avg_params)`` on the host of every rank.
     """
+    C, P = inits.shape
     cap = min(hist_cap, n_iters) if hist_cap is not None else n_iters
-    zeros = torch.zeros_like(inits)
-    (param, _, _, avg), (values, log_norms, chains) = _chains_segment(
-        step, kind, n_iters, learning_rate, epsilon, learning_rate_end,
-        avg_start, cap, 0, n_iters, (inits, zeros, zeros, zeros), draws)
-    return (values, log_norms, chains), param, avg
+    groups, devices = _placement(mesh, axis, C, inits.device)
+    local = {}
+    for g, dev in devices.items():
+        lo, hi, _ = groups[g]
+        with on_device(dev):
+            init = inits[lo:hi].to(dev)
+            zeros = torch.zeros_like(init)
+            (param, _, _, avg), (values, lns, hist) = _chains_segment(
+                step, kind, n_iters, learning_rate, epsilon,
+                learning_rate_end, avg_start, cap, 0, n_iters,
+                (init, zeros, zeros, zeros), _group_draws(draws, lo, hi, dev))
+            local[g] = torch.cat([values, lns, hist.reshape(hi - lo, -1),
+                                  param, avg], dim=1)
+    values, lns, hist, param, avg = _gather_groups(
+        groups, local, (n_iters, n_iters, cap * P, P, P), inits.dtype,
+        torch.device('cpu'))
+    return (values, lns, hist.reshape(C, cap, P)), param, avg
+
+
+class _GroupDraws:
+    """The draws of a chain group made where it runs: ``make(lo, hi,
+    device)`` gives chains ``[lo, hi)``'s draws on `device` (a block, or
+    ``draw(i)``)."""
+
+    def __init__(self, make):
+        self.make = make
+
+
+def _group_draws(draws, lo, hi, device):
+    """Chains ``[lo, hi)``'s draws on `device`: a `_GroupDraws` makes
+    them, ``draw(i)`` passes through (it draws every chain), and a ``(C,
+    n_iters, ...)`` block is sliced and moved."""
+    if isinstance(draws, _GroupDraws):
+        return draws.make(lo, hi, device)
+    if callable(draws):
+        return draws
+    return map_draws(lambda v: v[lo:hi].to(device), draws)
+
+
+def _check_chain_mesh(mesh, axis, n_chains):
+    from .parallel.sharded_chains import chain_groups
+    if axis not in mesh.axis_names:
+        raise ValueError(
+            'the IA chains split over a mesh axis named {!r}; the given '
+            'mesh has axes {} (build it with make_mesh(axis_names=('
+            "'chain', ...)))".format(axis, mesh.axis_names))
+    return chain_groups(mesh, n_chains, axis)
+
+
+def _placement(mesh, axis, n_chains, device):
+    """The chain groups ``[(lo, hi, entry)]`` and ``{group: device}`` of
+    those this rank runs: without a mesh one group of every chain on
+    `device` (its entry None), else the mesh's `axis` groups
+    (`parallel.sharded_chains.chain_groups`)."""
+    if mesh is None:
+        return [(0, n_chains, None)], {0: device}
+    from .parallel.distributed import rank
+    groups = _check_chain_mesh(mesh, axis, n_chains)
+    return groups, {g: entry.device for g, (_, _, entry) in enumerate(groups)
+                    if entry.rank == rank()}
+
+
+def _gather_groups(groups, local, widths, dtype, device):
+    """Each group's ``(chains, sum(widths))`` pack, computed where it ran
+    (`local` maps this rank's groups to their packs, on their devices), on
+    `device` of every rank, in chain order, cut into one ``(C, width)``
+    tensor a width.  The groups of a mesh cross ranks in one
+    `distributed.exchange`."""
+    if groups[0][2] is None:
+        flat = local[0].to(device)
+    else:
+        from .parallel.distributed import exchange
+        lo, hi, _ = groups[0]
+        flat = torch.cat(exchange(local, [e.rank for _, _, e in groups],
+                                  (hi - lo, sum(widths)), dtype, device))
+    return torch.split(flat, list(widths), dim=1)
 
 
 def _segment_progress(i_done, n_iters, tail_values):
@@ -548,7 +637,8 @@ def _segment_progress(i_done, n_iters, tail_values):
 
 def _chains_run_segmented(step, kind, n_iters, learning_rate, epsilon,
                           learning_rate_end, inits, draws, keys, hist_cap,
-                          avg_start, save_every, checkpoint_path, progress):
+                          avg_start, save_every, checkpoint_path, progress,
+                          mesh=None, axis='chain'):
     """The chains run in `save_every`-iteration segments, with progress
     lines, checkpoint and resume, and partial results on an interrupt
     (viabel_tpu/optimizers.py:570-718).
@@ -564,6 +654,11 @@ def _chains_run_segmented(step, kind, n_iters, learning_rate, epsilon,
     KeyboardInterrupt between segments returns what is done; one before
     the first segment completes is raised again.
 
+    With `mesh` each device group of its `axis` runs its chains' segments
+    on its device (the carry placed there from the host state, a resumed
+    one too), and every rank gathers each segment's results, so every
+    rank holds the same host state and writes the same checkpoint.
+
     `keys` is the ``(C, nbytes)`` uint8 stack of the chain generators'
     states at the start of the call (``get_state()``), the checkpoint's
     ``keys`` entry.  Returns ``((values, log_norms, chains), final_params,
@@ -573,7 +668,6 @@ def _chains_run_segmented(step, kind, n_iters, learning_rate, epsilon,
     from .checkpoint import (FORMAT_CHAINS, _load_resume_state,
                              _validate_resume, save_checkpoint)
     n_chains, P = inits.shape
-    device = inits.device
     np_dtype = torch.empty((), dtype=inits.dtype).numpy().dtype
     cap = min(hist_cap, n_iters) if hist_cap is not None else n_iters
     template = dict(
@@ -607,28 +701,52 @@ def _chains_run_segmented(step, kind, n_iters, learning_rate, epsilon,
         state = template
         state['params'] = inits.cpu().numpy()
         start = 0
-    carry = tuple(torch.as_tensor(state[name]).to(device)
-                  for name in ('params', 'v', 'm', 'avg'))
+    carry_names = ('params', 'v', 'm', 'avg')
+    groups, devices = _placement(mesh, axis, n_chains, inits.device)
+    # each group's carry on its device (the placement a resume restores)
+    # and its draws
+    carry = {g: tuple(torch.as_tensor(state[name][lo:hi]).to(devices[g])
+                      for name in carry_names)
+             for g, (lo, hi, _) in enumerate(groups) if g in devices}
+    group_draws = {g: _group_draws(draws, groups[g][0], groups[g][1],
+                                   devices[g]) for g in devices}
+
+    def gathered(local, widths):
+        return _gather_groups(groups, local, widths, inits.dtype,
+                              torch.device('cpu'))
 
     i = start
     try:
         while i < n_iters:
             length = min(save_every, n_iters - i)
-            carry, (vals, lns, hist_seg) = _chains_segment(
-                step, kind, n_iters, learning_rate, epsilon,
-                learning_rate_end, avg_start, cap, i, length, carry, draws)
-            state['values'][:, i:i + length] = vals.cpu().numpy()
-            state['lns'][:, i:i + length] = lns.cpu().numpy()
+            keep = min(length, cap)
+            local, advanced = {}, {}
+            for g, dev in devices.items():
+                with on_device(dev):
+                    advanced[g], (vals, lns, hist_seg) = _chains_segment(
+                        step, kind, n_iters, learning_rate, epsilon,
+                        learning_rate_end, avg_start, cap, i, length,
+                        carry[g], group_draws[g])
+                    parts = [vals, lns, hist_seg.reshape(vals.shape[0], -1)]
+                    if checkpoint_path is not None:
+                        parts.extend(advanced[g])
+                    local[g] = torch.cat(parts, dim=1)
+            widths = (length, length, keep * P) + (
+                (P,) * 4 if checkpoint_path is not None else ())
+            got = gathered(local, widths)
+            state['values'][:, i:i + length] = got[0].numpy()
+            state['lns'][:, i:i + length] = got[1].numpy()
             # the segment's last min(length, cap) entries, ring-written
             # into the capped host history
-            keep = hist_seg.shape[1]
             slots = np.arange(i + length - keep, i + length) % cap
-            state['hist'][:, slots] = hist_seg.cpu().numpy()
+            state['hist'][:, slots] = got[2].reshape(
+                n_chains, keep, P).numpy()
+            carry = advanced
             i += length
             state['i'] = np.asarray(i)
             if checkpoint_path is not None:
-                for name, t in zip(('params', 'v', 'm', 'avg'), carry):
-                    state[name] = t.cpu().numpy()
+                for name, t in zip(carry_names, got[3:]):
+                    state[name] = t.numpy()
                 save_checkpoint(checkpoint_path, state)
             if progress:
                 _segment_progress(
@@ -644,9 +762,10 @@ def _chains_run_segmented(step, kind, n_iters, learning_rate, epsilon,
     i_done = i
     kept = min(i_done, cap)
     order = (i_done - kept + np.arange(kept)) % cap
+    final, avg = gathered({g: torch.cat([c[0], c[3]], dim=1)
+                           for g, c in carry.items()}, (P, P))
     return ((state['values'][:, :i_done], state['lns'][:, :i_done],
-             state['hist'][:, order]),
-            carry[0].cpu().numpy(), carry[3].cpu().numpy(), i_done)
+             state['hist'][:, order]), final.numpy(), avg.numpy(), i_done)
 
 
 def _ia_postprocess(K, chains, values, log_norms, rhat_window,
@@ -703,10 +822,6 @@ def _ia_optimize(kind, perturb_scale, n_iters, objective_and_grad,
     """The body shared by the RMSProp-IA and Adam-IA optimizers
     (viabel_tpu/optimizers.py:792-842): segmented (`_chains_run_segmented`)
     when `checkpoint_path` or `progress` is set, else one segment."""
-    if mesh is not None:
-        raise NotImplementedError(
-            'mesh= is not ported yet: the mesh-sharded chain runs come with '
-            'the port of parallel/')
     presampled = getattr(objective_and_grad, 'presampled', False)
     if not presampled and getattr(objective_and_grad, 'iteration_draws',
                                   None) is None:
@@ -715,6 +830,8 @@ def _ia_optimize(kind, perturb_scale, n_iters, objective_and_grad,
             'sampling inside the step with `iteration_draws` (a '
             'perturbed objective has none)')
     step = _batched_step(objective_and_grad, has_log_norm)
+    if mesh is not None:
+        device = mesh.home()
     device = resolve_device(device)
     if generator is None:
         generator = default_generator(device)
@@ -728,7 +845,19 @@ def _ia_optimize(kind, perturb_scale, n_iters, objective_and_grad,
     inits = _perturbed_inits(init_param, n_optimisers, perturb_scale, noise)
     chain_generators = [torch.Generator(device=device).manual_seed(s)
                         for s in chain_seeds]
-    if presampled:
+    if mesh is not None:
+        _check_chain_mesh(mesh, 'chain', n_optimisers)
+
+        def make(lo, hi, dev):  # a group's draws, made on its device
+            if presampled:
+                return _chain_xs(objective_and_grad, [
+                    torch.Generator(device=dev).manual_seed(s)
+                    for s in chain_seeds[lo:hi]], 0, n_iters, dtype)
+            return _generator_draws(objective_and_grad, chain_seeds[lo:hi],
+                                    dev, dtype)
+
+        draws = _GroupDraws(make)
+    elif presampled:
         draws = _chain_xs(objective_and_grad, chain_generators, 0, n_iters,
                           dtype)
     else:
@@ -744,14 +873,14 @@ def _ia_optimize(kind, perturb_scale, n_iters, objective_and_grad,
             _chains_run_segmented(
                 step, kind, n_iters, learning_rate, epsilon,
                 learning_rate_end, inits, draws, keys, hist_cap, avg_start,
-                save_every, checkpoint_path, progress)
+                save_every, checkpoint_path, progress, mesh)
     else:
         (values, log_norms, chains), final_params, avg_params = _chains_run(
             step, kind, n_iters, learning_rate, epsilon, learning_rate_end,
-            inits, draws, hist_cap, avg_start)
+            inits, draws, hist_cap, avg_start, mesh)
         values, log_norms, chains, final_params, avg_params = (
-            t.cpu().numpy() for t in (values, log_norms, chains,
-                                      final_params, avg_params))
+            t.numpy() for t in (values, log_norms, chains, final_params,
+                                avg_params))
     (avg_means, avg_sigmas, value_history, log_norm_history,
      optimisation_log, host_chains) = _ia_postprocess(
         K, chains, values, log_norms, rhat_window, r_mean_threshold,
@@ -798,7 +927,15 @@ def rmsprop_IA_optimize_with_rhat(n_iters, objective_and_grad, init_param, K,
     states at the start, and a checkpoint of another seed, shape or
     hyperparameter is refused), a running-average-loss line is printed,
     and a KeyboardInterrupt returns the histories so far.  A segmented run
-    equals the whole run.  ``mesh=`` raises NotImplementedError.
+    equals the whole run.
+
+    With `mesh` (a `parallel.Mesh` whose ``chain`` axis divides
+    `n_optimisers`) the chains split over its ``chain`` axis: each device
+    group runs its chains as one batch on its device, from the same
+    per-chain seeds (so the same draws, on the same kind of device), and
+    every rank gathers the results; a checkpoint's carry returns to the
+    groups' devices on resume.  `device` is then this rank's first device
+    of the mesh.
 
     Returns the JAX package's 7-tuple of host numpy arrays:
     ``(variational_param, chains, averaged_means_list,

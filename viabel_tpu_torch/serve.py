@@ -26,9 +26,17 @@ non-finite) and the status codes (400, 404, 500, 503 for a concurrent fit)
 are the JAX service's.  Not ported: the power-of-two buckets of
 ``/sample`` and ``/log_prob`` and the cap on distinct ``/fit``
 configurations, which bound XLA's cache of compiled executables (the port
-compiles no program per size, and a fit's CUDA graphs are freed with it);
-the mesh placement of ``/fit`` and the sharded ``/bounds``, which wait for
-the port of ``parallel/``.
+compiles no program per size, and a fit's CUDA graphs are freed with it).
+
+Placement: with more than one device to place on (every rank's cards for
+a service on the card, or the `mesh_devices` it is given), a one-run
+``/fit`` and ``/bounds`` take `parallel.auto_mesh`'s mesh, as the command
+line does: the bound pass on the sample axis
+(`PosteriorService._fit_mesh`, which prints its placement once per
+request shape); ``/bounds`` then runs `parallel.sharded_bound_psis`.  A
+``/fit`` of K > 1 starts stays on the service's device, as the command
+line's batches do (the JAX service places it on a chain mesh), and says
+so once per request shape.
 
 Threads: the server runs each request on its own thread.  A ``/fit``
 captures CUDA graphs, and a capture in PyTorch's default mode fails if
@@ -37,8 +45,8 @@ readers (``/sample``, ``/log_prob``, ``/bounds``) do their device work
 under `_device.between_captures`, which holds off a capture; a capture
 (`_device.capture`) takes the same lock only from its begin to its end,
 so a read waits at most one capture, never a fit.  The readers run on a
-stream of their own, so their work does not queue behind the fit's on the
-card.  Start with::
+stream of their own on each card they use, so their work does not queue
+behind the fit's.  Start with::
 
     python -m viabel_tpu_torch.serve --config cfg.json --param ckpt.npz
     python -m viabel_tpu_torch.serve --config cfg.json --device cpu
@@ -65,6 +73,14 @@ class ServiceBusyError(RuntimeError):
     lock would stall every later request with no backpressure signal."""
 
 
+def _card(device):
+    """`device` with its index (a bare ``cuda`` is the current card)."""
+    device = torch.device(device)
+    if device.type == 'cuda' and device.index is None:
+        return torch.device('cuda', torch.cuda.current_device())
+    return device
+
+
 class PosteriorService:
     """Query layer over (model, family, var_param) on `device` (None: the
     CUDA card).
@@ -78,13 +94,24 @@ class PosteriorService:
 
     Randomness: each request takes one seed from the service's generator
     (seeded with `seed`) under a lock, and draws from a generator of its
-    own seeded with it, so concurrent requests never share a generator.
+    own seeded with it (a sharded ``/bounds`` from that seed's
+    ``fold_in`` streams), so concurrent requests never share a generator.
+
+    `mesh_devices` lists the devices ``/fit`` and ``/bounds`` may place
+    their work on (`parallel.auto_mesh`; a device may be listed more than
+    once); by default every rank's cards for a service on the card, and
+    none on the CPU.
     """
 
     def __init__(self, model, family, var_param, seed=0,
                  max_fit_iters=200000, max_bound_samples=4000000,
-                 max_fit_evals=20000000, device=None):
+                 max_fit_evals=20000000, device=None, mesh_devices=None):
         self.device = resolve_device(device)
+        if mesh_devices is None:
+            from .parallel import devices
+            mesh_devices = devices() if self.device.type == 'cuda' else []
+        self.mesh_devices = list(mesh_devices)
+        self._mesh_notes = set()  # (n_runs, n) shapes whose note was shown
         self.model = model
         self.family = family
         self.var_param = torch.as_tensor(var_param, device=self.device)
@@ -94,8 +121,11 @@ class PosteriorService:
         self._seeds = torch.Generator().manual_seed(seed)
         self._lock = threading.Lock()
         self._fit_lock = threading.Lock()  # held for a /fit's full duration
-        self._reads = (torch.cuda.Stream(self.device)
-                       if self.device.type == 'cuda' else None)
+        # the readers' stream on each card they use
+        cards = {_card(self.device)} | {
+            _card(getattr(d, 'device', d)) for d in self.mesh_devices}
+        self._reads = [torch.cuda.Stream(d) for d in sorted(
+            cards, key=str) if d.type == 'cuda']
         mean, cov = family.mean_and_cov(self.var_param)
         self.mean = mean.cpu().numpy()
         self.cov = cov.cpu().numpy()
@@ -121,10 +151,12 @@ class PosteriorService:
         """A reader's device work, from its generator to its last copy to
         the host: on the card between captures (see the module
         docstring) and on the readers' stream."""
-        if self._reads is None:
+        if not self._reads:
             yield
             return
-        with between_captures(), torch.cuda.stream(self._reads):
+        with between_captures(), contextlib.ExitStack() as stack:
+            for stream in self._reads:
+                stack.enter_context(torch.cuda.stream(stream))
             yield
 
     @staticmethod
@@ -169,6 +201,18 @@ class PosteriorService:
         # rounding the MC size up to a power of two only tightens the
         # estimates, and keeps the JAX service's results for a given n
         n = min(self._bucket(n), self.max_bound_samples)
+        mesh = self._fit_mesh(1, n)
+        if mesh is not None:
+            from .parallel import sharded_bound_psis
+            with self._lock:
+                seed = philox_seed(self._seeds)
+            with self._reading():
+                mb = family_moment_bounds(self.family, var_param)
+                res, _, khat = sharded_bound_psis(
+                    self.model, self.family, var_param, n, seed, mesh,
+                    q_var=cov, moment_bound_fn=mb)
+            res['khat'] = khat
+            return {k: float(v) for k, v in res.items()}
         with self._reading():
             z = self.family.base_sample(self._generator(), n,
                                         var_param.dtype)
@@ -232,13 +276,38 @@ class PosteriorService:
         finally:
             self._fit_lock.release()
 
+    def _fit_mesh(self, n_starts, n_bound_samples):
+        """`parallel.auto_mesh`'s placement of a one-run ``/fit`` (or a
+        ``/bounds`` pass) of `n_bound_samples` over `mesh_devices`, or
+        none for a batch of `n_starts` > 1 starts, its note printed once
+        per request shape (viabel_tpu/serve.py:245-263)."""
+        from .parallel import auto_mesh
+        n = len(self.mesh_devices)
+        if n_starts > 1:  # a batch stays on one card (__main__._report_batch)
+            mesh = None
+            note = '{} devices; the batch runs on one'.format(n) if n > 1 \
+                else None
+        else:
+            mesh, note = auto_mesh(1, n_bound_samples,
+                                   devices=self.mesh_devices)
+        if note is not None:
+            key = (n_starts, n_bound_samples)
+            with self._lock:
+                first_time = key not in self._mesh_notes
+                self._mesh_notes.add(key)
+            if first_time:
+                print('[serve] K={}, n={}: {}'.format(
+                    n_starts, n_bound_samples, note), flush=True)
+        return mesh
+
     def _fit_locked(self, n_iters, n_mc_samples, n_bound_samples, lr,
                     lr_end, n_starts, pscale):
         from .pipeline import validated_vi, validated_vi_multistart
         var_param, _, _ = self._snapshot()
         kw = dict(n_mc_samples=n_mc_samples, n_bound_samples=n_bound_samples,
                   generator=self._generator(), learning_rate=lr,
-                  learning_rate_end=lr_end, device=self.device)
+                  learning_rate_end=lr_end, device=self.device,
+                  mesh=self._fit_mesh(n_starts, n_bound_samples))
         best = None
         if n_starts > 1:
             ms = validated_vi_multistart(
@@ -256,7 +325,7 @@ class PosteriorService:
         mean = out['q_mean'].cpu().numpy()
         cov = out['q_cov'].cpu().numpy()
         with self._lock:
-            self.var_param = out['opt_param'].detach()
+            self.var_param = out['opt_param'].detach().to(self.device)
             self.mean = mean
             self.cov = cov
         res = dict(

@@ -198,7 +198,10 @@ result line:
     shards (its cost on one card), and at float64 and 2e5 samples the
     sharded pass against the unsharded pass on its shards' draws (K1 on
     eight-schools CP, PSIS, and the K2 row-range route on regression, each
-    to 1e-10); (b) phase 13's mf-t KLVI multistart on a (4, 2) (chain,
+    to 1e-10), and standard-normal log-weights with one shard all -inf,
+    their sharded statistics against the unsharded ``log_weight_stats``
+    (1e-10; equal infinities and two NaNs count 0; the rescaled moments
+    finite); (b) phase 13's mf-t KLVI multistart on a (4, 2) (chain,
     sample) mesh, its mean khat inside 3 sd of the JAX package's band; (c)
     the 4 RMSProp-IA regression chains on a 4-way chain axis (2000 of
     phase 6's 5000 iterations), then ``improve_with_psis_sharded`` at 1e6
@@ -207,11 +210,34 @@ result line:
     a 2-way mesh, and its latency beside the service without a mesh; (e) 2
     ranks spawned on the one card over Gloo (over NCCL with a card each
     where there are two cards; the log says which), equal to the
-    one-process 2-entry mesh bit for bit.
+    one-process 2-entry mesh bit for bit;
+22. the last modules, float32, (a) and (b) each with every launch count set
+    to 0 just before it and read just after, each wall printed beside the
+    card's name and power limit: (a) ``python -m viabel_tpu_torch bench`` at
+    bench.py's sizes, in a process of its own that reports its launch
+    counts, as (c)'s trace is (``--fresh-worker``: traces taken after phase
+    20's long one lose kernel records); the bench (`viabel_tpu_torch.bench`)
+    runs KLVI and CHIVI 5000 iterations, the 2.5e6-sample bound pass and
+    PSIS, the fused ``validated_vi`` of 10000 iterations, 8 starts of it and
+    the one-entry sharded pass; its JSON line has bench.py's keys plus
+    ``device``, every number finite (``draw_score_device_ms`` may be null
+    after its logged retries), and K1, K3, the combine and the step kernel
+    launched, the step once an iteration of every run and of the 8-start
+    batch; (b) RMSProp-IA with ``perturbed_black_box_vi`` (scale 0.1) on
+    phase 6's regression, 4 chains x 2000 of its 5000 iterations, and the
+    averaged fit's bound pass at 1e6 (K2): R-hat maxima, the averaged
+    parameter and d2 finite; then 2 chains x 200 iterations at float64 on
+    the card against the CPU on shared draws (1e-10 of the largest value);
+    (c) ``utils``: the kernel time of a ``profile_trace`` around one K1 pass
+    is positive and no less than K1's ``device_ms`` (the trace's event
+    categories and kernel records logged), ``count_compilations`` around one
+    ``validated_vi`` counts at least one capture, and a ``Timer`` with
+    ``sync`` of that fit prints its line.
 
 The line before the last is a JSON object with one entry per kernel:
 route, source, the TPU kernel it replaces, launches on the paths of phases
-2, 6, 10, 13, 14, 15, 17, 18, 19 and 21 (summed), the float32 max abs error, its time by
+2, 6, 10, 13, 14, 15, 17, 18, 19, 21 and 22 (summed), the float32 max abs
+error, its time by
 events around the call (``ms``) and on the card (``device_ms``), the plain
 version's time, its bound (the larger of bytes over 3.35 TB/s and
 operations over 67 TFLOP/s float32, H100 SXM data-sheet peaks; integer
@@ -328,6 +354,11 @@ MESH_COSTS = (1, 2, 4, 8)
 # iterations
 MESH_IA_F64_ITERS = 500
 MESH_IA_TOL = {'float32': 1e-4, 'float64': 1e-8}
+# phase 22: the port's bench at bench.py's sizes; RMSProp-IA with
+# perturbed_black_box_vi on phase 6's regression (4 chains, 2000 of its
+# 5000 iterations, any fixed perturbation scale), and at float64 2 chains
+# x 200 iterations on the card against the CPU
+PERTURB_SCALE, PERTURB_ITERS, PERTURB_SMALL = 0.1, 2000, 200
 
 
 def ops_k2(d, n_rows):
@@ -2686,12 +2717,47 @@ def mesh_f64_checks(vt, model, fam, opt):
     worst['K2 lw'] = max_rel(parallel.fetch_global(lw), want_lw)
     worst['philox_normal rows'] = max_rel(parallel.fetch_global(smp),
                                           want_smp)
+    worst.update(all_inf_shard_check(vt, mesh, n))
     log('  sharded against unsharded on the same draws, float64, {:.0e} '
         'samples on {} shards: {} (limit 1e-10)'.format(
             n, MESH_S, json.dumps(worst)))
     if not all(v <= 1e-10 for v in worst.values()):
         raise AssertionError('a sharded pass differs from the unsharded '
                              'pass on its draws')
+
+
+def stat_rel(got, want):
+    """`bound_rel` of two statistics, 0 where both are NaN (a NaN on one
+    side only counts infinite)."""
+    if math.isnan(got) or math.isnan(want):
+        return 0.0 if math.isnan(got) and math.isnan(want) else math.inf
+    return bound_rel(got, want)
+
+
+def all_inf_shard_check(vt, mesh, n):
+    """Phase 21 (a), f64 (ROADMAP C.1): standard-normal log-weights with
+    one shard's all -inf, the sharded statistics against the unsharded
+    `bounds.log_weight_stats`, both on the card; returns the largest
+    relative difference (equal infinities and two NaNs count 0)."""
+    from viabel_tpu_torch import parallel
+    from viabel_tpu_torch.bounds import STAT_KEYS
+
+    lw = torch.randn(n, dtype=torch.float64, device='cuda',
+                     generator=card_generator(31))
+    shard = n // MESH_S
+    lw[shard:2 * shard] = -math.inf
+    got = parallel.sharded_log_weight_stats(lw, mesh)
+    want = vt.log_weight_stats(lw)
+    log('  one shard of {} all -inf, float64, {:.0e} log-weights: sharded '
+        '{} against unsharded {}'.format(
+            MESH_S, n, json.dumps({k: got[k] for k in STAT_KEYS}),
+            json.dumps({k: want[k] for k in STAT_KEYS})))
+    if not all(is_finite(got[k]) for k in ('mean_rescaled_alpha',
+                                            'std_rescaled_alpha')):
+        raise AssertionError('an all -inf shard made the sharded statistics '
+                             'NaN')
+    return {'all -inf shard stats': max(stat_rel(got[k], want[k])
+                                        for k in STAT_KEYS)}
 
 
 def mesh_multistart(vt):
@@ -3047,6 +3113,314 @@ def mesh_path(vt):
     return total
 
 
+def jax_bench_line():
+    """bench.py's printed dict, read from its source: its keys, `metric`,
+    `unit` and the keys of its `extra`."""
+    import ast
+
+    with open(os.path.join(HERE, 'bench.py')) as f:
+        tree = ast.parse(f.read())
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Call) and getattr(node.func, 'attr', None)
+                == 'dumps' and isinstance(node.args[0], ast.Dict)):
+            keys = [k.value for k in node.args[0].keys]
+            values = dict(zip(keys, node.args[0].values))
+            return (keys, values['metric'].value, values['unit'].value,
+                    [k.value for k in values['extra'].keys])
+    raise AssertionError('bench.py prints no JSON dict')
+
+
+def fresh_worker(part, out):
+    """Phase 22's profiled parts in a process of their own (``chip_smoke.py
+    --fresh-worker <part> <out>``): 'bench' runs ``__main__.main(['bench'])``
+    with the launch counts set to 0 just before and read just after,
+    'trace' `k1_trace`; the results go to `out` as JSON.  Profiler traces
+    taken late in this script's process, after phase 20's trace of ~3e5
+    kernel records, came back without kernel records or with only some of
+    them (six empty in a row, and a draw + score pass read at 3.1 ms
+    against 5.3 ms in a fresh process, on an NVIDIA H100 80GB HBM3,
+    700.00 W), so these traces start in a process of their own."""
+    if part == 'bench':
+        reset_launches()
+        t, stdout = run_cli(['bench'])
+        result = dict(seconds=t, stdout=stdout, launches=read_launches())
+    else:
+        result = k1_trace()
+    with open(out, 'w') as f:
+        json.dump(result, f)
+    return 0
+
+
+def fresh_process(part):
+    """`fresh_worker`'s result for `part`, its output logged; the process
+    is stopped before this returns, and one that fails raises with its
+    output."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_fresh_') as tmp:
+        out = os.path.join(tmp, part + '.json')
+        proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), '--fresh-worker',
+             part, out], stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        try:
+            text = proc.communicate(timeout=600)[0].decode()
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for line in text.splitlines():
+            log('  | ' + line)
+        if proc.returncode != 0:
+            raise AssertionError('the {} process failed'.format(part))
+        with open(out) as f:
+            return json.load(f)
+
+
+def bench_part(vt):
+    """Phase 22 (a): ``python -m viabel_tpu_torch bench`` at bench.py's
+    sizes, in a process of its own (`fresh_worker`); its line against
+    bench.py's keys, its numbers finite, and K1, K3, the combine and the
+    step (runs at K = 1 and the multistart batch at K = 8) launched;
+    returns its launches."""
+    from viabel_tpu_torch import bench
+
+    res = fresh_process('bench')
+    t, launches = res['seconds'], res['launches']
+    line = json.loads(res['stdout'].strip().splitlines()[-1])
+    log('  bench line: {}'.format(json.dumps(line)))
+    part_line('(a) python -m viabel_tpu_torch bench', t)
+    log('  kernel launches: {}'.format(launches))
+    keys, metric, unit, extra = jax_bench_line()
+    if (list(line) != keys or list(line['extra']) != extra + ['device']
+            or (line['metric'], line['unit']) != (metric, unit)):
+        raise AssertionError('the bench line is not bench.py\'s: {}'.format(
+            sorted(line)))
+    device_ms_value = line['extra']['draw_score_device_ms']
+    log('  draw_score_device_ms: {}'.format(
+        'not measured (the retries are logged above)'
+        if device_ms_value is None else device_ms_value))
+    numbers = {k: v for k, v in line['extra'].items() if k != 'device'}
+    if device_ms_value is None:
+        del numbers['draw_score_device_ms']
+    flat = [line['value'], line['vs_baseline']] + [
+        x for v in numbers.values()
+        for x in (v if isinstance(v, list) else [v])]
+    if not all(isinstance(x, (int, float)) and is_finite(x) for x in flat):
+        raise AssertionError('a bench number is not finite: {}'.format(line))
+    require_launched(launches, ('transform_score_partials', 'lw_partials',
+                                'combine_partials'), 'bench')
+    # KLVI 1 + 2 (1 + reps) runs, CHIVI 1 + reps, the fused validated_vi
+    # 1 + reps of 2 n_iters, and the multistart's 1 + reps batches, each
+    # one step launch a batched iteration (at K = 1 it would be n_starts)
+    n, reps = bench.N_ITERS, bench.REPS
+    runs = ([n] * (1 + 2 * (1 + reps)) + [n] * (1 + reps)
+            + [2 * n] * (1 + reps) + [2 * n] * (1 + reps))
+    require_adagrad_steps(launches, runs, 'bench')
+    return launches
+
+
+def perturbed_ia_part(vt):
+    """Phase 22 (b): RMSProp-IA with perturbed_black_box_vi on phase 6's
+    regression (4 chains, `PERTURB_ITERS`, float32), its averaged fit's
+    bound pass (K2), then the chains at float64 on the card against the
+    CPU; returns the launches of the run and its bound pass."""
+    from viabel_tpu_torch.bounds import family_moment_bounds
+
+    model = regression_model()
+    fam = vt.mean_field_gaussian_variational_family(model.dim)
+    obj = vt.perturbed_black_box_vi(fam, model, N_MC,
+                                    perturbation_scale=PERTURB_SCALE)
+    init = torch.zeros(fam.var_param_dim, dtype=torch.float32, device='cuda')
+    reset_launches()
+    t, out = wall(lambda: vt.rmsprop_IA_optimize_with_rhat(
+        PERTURB_ITERS, obj, init, fam.dim, generator=card_generator(22),
+        learning_rate=IA_LR, n_optimisers=IA_CHAINS,
+        rhat_window=max(PERTURB_ITERS // 10, 100),
+        tail_avg_iters=PERTURB_ITERS // 4, device='cuda'))
+    _, _, avg_means, avg_sigmas, _, _, ia_log = out
+    ia_param = torch.as_tensor(np.concatenate([avg_means[0][-1],
+                                               avg_sigmas[0][-1]]),
+                               device='cuda')
+    t_bound, (_, lw) = wall(lambda: vt.get_samples_and_log_weights(
+        model, fam, ia_param, IA_BOUND, generator=card_generator(23),
+        device='cuda'))
+    bounds = vt.all_bounds(
+        lw, q_var=fam.mean_and_cov(ia_param)[1].cpu().numpy(),
+        moment_bound_fn=family_moment_bounds(fam, ia_param))
+    launches = read_launches()
+    fit = vt.check_approx_accuracy(fam, ia_param, model.true_mean,
+                                   model.true_cov)
+    rhat = {k: float(np.max(ia_log[k])) for k in (
+        'r_hat_mean', 'r_hat_sigma', 'r_hat_mean_halfway',
+        'r_hat_sigma_halfway')}
+    log('  RMSProp-IA with perturbed_black_box_vi (perturbation scale {}, '
+        '{} chains x {} iterations, n_mc {}, lr {}, float32): {:.1f} it/s; '
+        'R-hat maxima {}; averaging starts {} / {}; fit mean error {!r}; '
+        'bound pass at {:.0e} {:.3f} s, d2 {!r}'.format(
+            PERTURB_SCALE, IA_CHAINS, PERTURB_ITERS, N_MC, IA_LR,
+            PERTURB_ITERS / t, json.dumps(rhat),
+            ia_log['start_avg_mean_iters'], ia_log['start_avg_sigma_iters'],
+            float(fit['mean_error']), IA_BOUND, t_bound,
+            float(bounds['d2'])))
+    part_line('(b) perturbed RMSProp-IA', t)
+    log('  kernel launches: {}'.format(launches))
+    require_finite('perturbed IA', dict(rhat, d2=bounds['d2'],
+                                        mean_error=fit['mean_error']))
+    if not torch.isfinite(ia_param).all():
+        raise AssertionError('the perturbed chains\' averaged parameter is '
+                             'not finite')
+    require_launched(launches, ('gaussian_sample_score_partials',
+                                'philox_normal', 'combine_partials'),
+                     'perturbed IA')
+    perturbed_card_vs_cpu(vt, model, fam)
+    return launches
+
+
+def perturbed_card_vs_cpu(vt, model, fam):
+    """Phase 22 (b), float64: the perturbed chains (2 x `PERTURB_SMALL`
+    iterations) on the card against the CPU on shared draws: each
+    iteration's noise and base draws come from the CPU's generators of
+    the chains' seeds (a CUDA generator of the same seed draws another
+    torch.randn stream), the inits from the Philox stream; values,
+    history, final and averaged parameters each to 1e-10 of their largest
+    value."""
+    from viabel_tpu_torch import optimizers as topt
+    from viabel_tpu_torch.ops.philox import philox_normal_plain
+
+    obj = vt.perturbed_black_box_vi(fam, model, N_MC,
+                                    perturbation_scale=PERTURB_SCALE)
+    P, C, n = fam.var_param_dim, 2, PERTURB_SMALL
+    draw = topt._generator_draws(obj, [41, 42], 'cpu', torch.float64)
+    per_iter = [draw(i) for i in range(n)]
+    block = {k: torch.stack([d[k] for d in per_iter], dim=1)
+             for k in per_iter[0]}
+    inits = topt._perturbed_inits(
+        torch.zeros(P, dtype=torch.float64), C, 0.5,
+        philox_normal_plain(C, P, 43, 0, dtype=torch.float64))
+    outs = {}
+    for dev in ('cpu', 'cuda'):
+        (values, lns, hist), final, avg = topt._chains_run(
+            topt._batched_step(obj, None), 'rmsprop', n, IA_LR, 1e-6, None,
+            inits.to(dev), {k: v.to(dev) for k, v in block.items()},
+            avg_start=int(n // 1.3))
+        outs[dev] = (values, hist, final, avg)
+    worst = max(float((g - w).abs().max() / w.abs().max())
+                for g, w in zip(outs['cuda'], outs['cpu']))
+    log('  perturbed chains, card against CPU on shared draws, float64, {} '
+        'chains x {} iterations: largest difference over the largest value '
+        '{:.3e} (limit 1e-10)'.format(C, n, worst))
+    if not worst <= 1e-10:
+        raise AssertionError('the perturbed chains on the card differ from '
+                             'the CPU\'s')
+
+
+def read_trace(log_dir):
+    """The newest Chrome trace under `log_dir`: its events' categories
+    counted, and its kernel records' names and durations (us)."""
+    import glob
+
+    path = max(glob.glob(os.path.join(log_dir, '*.pt.trace.json')),
+               key=os.path.getmtime)
+    with open(path) as f:
+        events = json.load(f).get('traceEvents', [])
+    cats = {}
+    for e in events:
+        cats[str(e.get('cat'))] = cats.get(str(e.get('cat')), 0) + 1
+    kernels = [(e.get('name', ''), e.get('dur', 0)) for e in events
+               if e.get('ph') == 'X'
+               and str(e.get('cat', '')).lower() == 'kernel']
+    return cats, kernels
+
+
+def k1_trace():
+    """Phase 22 (c)'s trace, in a process of its own: K1's `device_ms` on
+    eight-schools CP at a stand-in fit (its ground-truth moments) and
+    2.5e6 samples, and `utils.trace_device_time` of a `profile_trace`
+    around one K1 pass (`draw_and_score` on drawn z, after an L2 flush,
+    the conditions of `device_ms`), the trace taken again, up to 6 times,
+    while it holds no kernel record; each trace's event categories and
+    kernel records are logged."""
+    import tempfile
+    import viabel_tpu_torch as vt
+    from viabel_tpu_torch.experiments import draw_and_score
+    from viabel_tpu_torch.models import eight_schools_cp_model
+    from viabel_tpu_torch.utils import profile_trace, trace_device_time
+
+    model = eight_schools_cp_model()
+    fam = vt.mean_field_t_variational_family(model.dim, 40)
+    opt = moments_fit(model)
+    z = fam.base_sample(card_generator(7), N_BOUND, torch.float32)
+    k1_ms = device_ms(lambda: draw_and_score(model, fam, opt, z),
+                      KERNEL_KEY['transform_score_partials'])
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32, device='cuda')
+    seconds = None
+    for attempt in range(6):
+        with tempfile.TemporaryDirectory(dir=HERE, prefix='.phase22-') as d:
+            torch.cuda.synchronize()
+            with profile_trace(d):
+                flush.zero_()
+                draw_and_score(model, fam, opt, z)
+            seconds = trace_device_time(d)
+            cats, kernels = read_trace(d)
+        log('trace {}: event categories {}; kernel records {}'.format(
+            attempt + 1, json.dumps(cats),
+            json.dumps([(name[:60], dur) for name, dur in kernels])))
+        if seconds:
+            break
+        time.sleep(1.0)
+    return dict(k1_device_ms=k1_ms, trace_s=seconds)
+
+
+def utils_part(vt, model, fam):
+    """Phase 22 (c): `utils` on the card.  The kernel time of a
+    `profile_trace` around one K1 pass (`k1_trace`, in a process of its
+    own) must be positive and no less than K1's `device_ms` there;
+    `count_compilations` around one validated_vi counts its captures, and
+    a `Timer` with `sync` of that fit prints its line."""
+    import re
+    from viabel_tpu_torch.utils import Timer, count_compilations
+
+    res = fresh_process('trace')
+    seconds, k1_ms = res['trace_s'], res['k1_device_ms']
+    log('  trace_device_time of one K1 pass: {} ms; K1 device_ms {} ms'
+        .format(None if seconds is None else seconds * 1e3, k1_ms))
+    if not seconds or (k1_ms is not None and seconds * 1e3 < k1_ms):
+        raise AssertionError('trace_device_time read {} s, below K1\'s '
+                             'device_ms or none'.format(seconds))
+    init = torch.zeros(fam.var_param_dim, dtype=torch.float32, device='cuda')
+    held = {}
+    buf = io.StringIO()
+    with count_compilations() as captures, contextlib.redirect_stdout(buf):
+        with Timer('validated_vi (phase 22 (c))',
+                   sync=lambda: [held['out']['opt_param'],
+                                 held['out']['smoothed_log_weights']]):
+            held['out'] = vt.validated_vi(
+                model, fam, init, N_ITERS, n_mc_samples=N_MC,
+                n_bound_samples=N_BOUND, learning_rate=0.01,
+                learning_rate_end=0.001, generator=card_generator(24),
+                device='cuda')
+    printed = buf.getvalue()
+    log('  Timer: {!r}; count_compilations: {} captures'.format(
+        printed, captures[0]))
+    if not re.match(r'^validated_vi \(phase 22 \(c\)\) took \d+\.\d{3} '
+                    r'(microsec|millisec|sec) to run\n$', printed):
+        raise AssertionError('Timer printed {!r}'.format(printed))
+    if captures[0] < 1:
+        raise AssertionError('count_compilations counted no capture of a '
+                             'validated_vi on the card')
+
+
+def phase22(vt, model, fam):
+    """Phase 22: the port's bench, perturbed IA chains and `utils` on the
+    card, each part counted alone; returns the sum of (a)'s and (b)'s
+    launch counts."""
+    total = {}
+    add_launches(total, bench_part(vt))
+    add_launches(total, perturbed_ia_part(vt))
+    utils_part(vt, model, fam)
+    return total
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -3100,6 +3474,8 @@ def main():
     path_launches.append(cli_path(vt))
     phases_done('17')
     path_launches.extend(new_phases(vt))
+    path_launches.append(phase22(vt, model, fam))
+    phases_done('22')
 
     kernels = [dict(name=name, route='cuda',
                     source='viabel_tpu_torch/csrc/' + SOURCE[name],
@@ -3129,6 +3505,8 @@ if __name__ == '__main__':
         if sys.argv[1:2] and sys.argv[1] in workers:
             code = workers[sys.argv[1]](int(sys.argv[2]), int(sys.argv[3]),
                                         sys.argv[4], sys.argv[5])
+        elif sys.argv[1:2] == ['--fresh-worker']:
+            code = fresh_worker(sys.argv[2], sys.argv[3])
         elif sys.argv[1:] == ['--mesh-cards']:
             code = mesh_cards()
         else:

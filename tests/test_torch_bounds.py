@@ -221,6 +221,15 @@ def test_input_validation_and_error_bounds():
         np.testing.assert_allclose(got[k], want[k])
 
 
+@pytest.mark.parametrize('w', [0.0, 0.25, 3.5, np.inf])
+def test_mean_and_std_bounds_match_jax(w):
+    """Two identities, module-level and outside ``__all__`` in both
+    packages (viabel_tpu/bounds.py:323-330)."""
+    assert tb.mean_bound(w) == vt.bounds.mean_bound(w) == w
+    assert tb.std_bound(w) == vt.bounds.std_bound(w) == w
+    assert 'mean_bound' not in tb.__all__ and 'std_bound' not in tb.__all__
+
+
 def test_mc_error_warning_category():
     lw = torch.as_tensor(np.random.default_rng(3).normal(0, 10, 100))
     with pytest.warns(tb.MonteCarloErrorWarning, match='ELBO'):

@@ -223,7 +223,12 @@ def test_validation_exits_with_the_jax_messages(extra, match):
 
 
 def test_bench_exits_with_its_message():
-    with pytest.raises(SystemExit, match='not ported'):
+    """`bench` runs the port's benchmark (tests/test_torch_bench.py runs it
+    on the CPU); without a card, and without ``--device cpu``, it exits
+    with run's message."""
+    if torch.cuda.is_available():
+        pytest.skip('a CUDA device is present')
+    with pytest.raises(SystemExit, match='--device cpu'):
         tmain(['bench'])
 
 

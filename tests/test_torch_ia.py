@@ -170,7 +170,7 @@ def test_public_optimizers_run_and_refuse_what_is_not_ported():
     # are ported (tests/test_torch_segmented.py), and the mesh: its chains
     # split over a chain axis equal the run without one
     # (tests/test_torch_parallel.py), and a mesh without one is refused;
-    # a perturbed objective, which draws its own noise, is not ported
+    # a perturbed objective, which draws its own noise, runs too
     from viabel_tpu_torch import parallel
     on_mesh = pt.rmsprop_IA_optimize_with_rhat(
         120, obj, init, D, generator=torch.Generator().manual_seed(1),
@@ -180,9 +180,131 @@ def test_public_optimizers_run_and_refuse_what_is_not_ported():
         pt.rmsprop_IA_optimize_with_rhat(
             10, obj, init, D, mesh=parallel.make_mesh(
                 ('sample',), devices=['cpu'] * 2), **kw)
-    with pytest.raises(NotImplementedError):
-        pt.adam_IA_optimize_with_rhat(
-            10, pt.perturbed_black_box_vi(fam, tm, 10), init, D, **kw)
+    perturbed = pt.adam_IA_optimize_with_rhat(
+        40, pt.perturbed_black_box_vi(fam, tm, 10), init, D, **kw)
+    assert perturbed[1].shape == (2, 40, 2 * D)
+    assert np.all(np.isfinite(perturbed[1]))
+    assert np.all(np.isfinite(perturbed[6]['averaged_variational_param']))
+
+
+PERTURB = 0.1
+
+
+def _perturbed_run_both(kind, n_iters=100, n_chains=2, seed=5):
+    """The JAX package's key-driven chains of `perturbed_black_box_vi`
+    against the port's fed the same noise and base draws: chain c's
+    iteration i splits ``fold_in(chain_key_c, i)`` into the noise's key and
+    the sample key (viabel_tpu/objectives.py:290-295)."""
+    jm, tm = _models()
+    jf = vt.mean_field_gaussian_variational_family(D)
+    tf = pt.mean_field_gaussian_variational_family(D)
+    jobj = vt.perturbed_black_box_vi(jf, jm.log_prob, N_MC,
+                                     perturbation_scale=PERTURB)
+    tobj = pt.perturbed_black_box_vi(tf, tm, N_MC,
+                                     perturbation_scale=PERTURB)
+    scale = 0.5 if kind == 'rmsprop' else 0.2
+    init_key, *chain_keys = jax.random.split(jax.random.PRNGKey(seed),
+                                             n_chains + 1)
+    init = jnp.zeros(2 * D, dtype=jnp.float64)
+    jinits = jo._perturbed_inits(init, n_chains, scale, init_key)
+    args = (kind, n_iters, 0.02, 1e-6, 0.005)
+    avg_start = int(n_iters // 1.3)
+    jout = jo._chains_run(jo._wrap_objective(jobj, None), *args, jinits,
+                          jnp.stack(chain_keys), hist_cap=80,
+                          avg_start=avg_start)
+
+    def draws_of(key, i):
+        noise_key, sample_key = jax.random.split(jax.random.fold_in(key, i))
+        return (jax.random.normal(noise_key, (2 * D,), jnp.float64),
+                jf.base_sample(sample_key, N_MC, jnp.float64))
+
+    per_chain = [jax.vmap(lambda i, k=k: draws_of(k, i))(
+        jnp.arange(n_iters)) for k in chain_keys]
+    drawn = dict(
+        noise=torch.as_tensor(np.stack([np.asarray(c[0])
+                                        for c in per_chain])),
+        draws=torch.as_tensor(np.stack([np.asarray(c[1])
+                                        for c in per_chain])))
+    noise = jax.random.normal(init_key, (n_chains, 2 * D), jnp.float64)
+    tinits = to._perturbed_inits(torch.zeros(2 * D, dtype=torch.float64),
+                                 n_chains, scale,
+                                 torch.as_tensor(np.array(noise)))
+    tout = to._chains_run(to._batched_step(tobj, None), *args, tinits,
+                          drawn, hist_cap=80, avg_start=avg_start)
+    return jout, tout
+
+
+@pytest.mark.parametrize('kind', ['rmsprop', 'adam'])
+def test_perturbed_chains_match_jax(kind):
+    """RMSProp-IA and Adam-IA chains of `perturbed_black_box_vi`, the
+    port's batched step on its pure `perturbed_objective`, against the
+    JAX package's on shared noise and draws."""
+    _assert_runs_match(*_perturbed_run_both(kind))
+
+
+def test_perturbed_iteration_draws_are_what_an_evaluation_draws():
+    """`iteration_draws` draws the noise, then the base draws, from the
+    generator, as an evaluation does; the batched step on them is the
+    evaluation, chain by chain."""
+    _, tm = _models(N=30)
+    fam = pt.mean_field_gaussian_variational_family(D)
+    obj = pt.perturbed_black_box_vi(fam, tm, 10, perturbation_scale=0.3)
+    params = torch.as_tensor(np.random.RandomState(2).normal(
+        0, .1, (2, 2 * D)))
+    drawn = [obj.iteration_draws(torch.Generator().manual_seed(s),
+                                 torch.float64) for s in (3, 4)]
+    assert drawn[0]['noise'].shape == (2 * D,)
+    assert drawn[0]['draws'].shape == (10, D)
+    values, grads, _ = to._batched_step(obj, None)(
+        params, {k: torch.stack([d[k] for d in drawn]) for k in drawn[0]})
+    for c, s in enumerate((3, 4)):
+        value, grad = obj(params[c], torch.Generator().manual_seed(s))
+        torch.testing.assert_close(values[c], value, rtol=1e-12, atol=0)
+        torch.testing.assert_close(grads[c], grad, rtol=1e-12, atol=1e-14)
+
+
+@pytest.mark.parametrize('kind', ['rmsprop', 'adam'])
+def test_perturbed_chains_resume_and_mesh_equal_the_whole_run(
+        tmp_path, monkeypatch, kind):
+    """The public optimizers on `perturbed_black_box_vi`: a checkpointed
+    run interrupted after its first segment and resumed, and the chains
+    split over a 2-way chain mesh, equal the whole run bit for bit."""
+    from viabel_tpu_torch import parallel
+    _, tm = _models(N=30)
+    fam = pt.mean_field_gaussian_variational_family(D)
+    obj = pt.perturbed_black_box_vi(fam, tm, 10, perturbation_scale=PERTURB)
+    opt = (pt.rmsprop_IA_optimize_with_rhat if kind == 'rmsprop'
+           else pt.adam_IA_optimize_with_rhat)
+    path = str(tmp_path / 'perturbed.npz')
+
+    def run(**kw):
+        return opt(150, obj, torch.zeros(2 * D, dtype=torch.float64), D,
+                   generator=torch.Generator().manual_seed(9),
+                   learning_rate=0.02, n_optimisers=2, rhat_window=30,
+                   tail_avg_iters=40, device='cpu', **kw)
+
+    whole = run()
+    real = to._chains_segment
+    calls = {'n': 0}
+
+    def interrupting(*args, **kwargs):
+        if calls['n'] >= 1:
+            raise KeyboardInterrupt
+        calls['n'] += 1
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(to, '_chains_segment', interrupting)
+    partial = run(checkpoint_path=path, save_every=60)
+    monkeypatch.setattr(to, '_chains_segment', real)
+    assert partial[1].shape == (2, 60, 2 * D)
+    resumed = run(checkpoint_path=path, save_every=60)
+    on_mesh = run(mesh=parallel.make_mesh(('chain',), devices=['cpu'] * 2))
+    for got in (resumed, on_mesh):
+        for k in (0, 1, 4, 5):
+            np.testing.assert_array_equal(got[k], whole[k])
+        np.testing.assert_array_equal(
+            got[6]['averaged_variational_param'],
+            whole[6]['averaged_variational_param'])
 
 
 def test_regression_slice_matches_jax():

@@ -47,6 +47,7 @@ from viabel_tpu_torch.ops.gaussian_lw import (gaussian_sample_score_partials,
                                               philox_normal)
 from viabel_tpu_torch.ops.philox import fold_in, philox_seed
 from viabel_tpu_torch.optimizers import _learning_rates
+from viabel_tpu_torch.parallel.sharded_bounds import _pass as sharded_pass
 from viabel_tpu_torch.pipeline import _batch_core, _bound_and_psis
 from viabel_tpu_torch.psis import _tail_len, psislw
 
@@ -83,17 +84,81 @@ def _rng(seed):
 # the sharded estimators against the JAX package's
 # --------------------------------------------------------------------------
 
-@pytest.mark.parametrize('mesh', MESHES)
-@pytest.mark.parametrize('shape', [(8000,), (4000, 3)])
-def test_log_weight_stats_match_jax(mesh, shape):
+def _check_log_weight_stats(mesh, lw):
     jm, tm = _meshes(mesh)
-    lw = 1.5 * _rng(0).standard_normal(shape) - 40.0
     want = jp.sharded_log_weight_stats(jp.shard_over(jnp.asarray(lw), jm,
                                                      'sample'), jm)
     got = pp.sharded_log_weight_stats(lw, tm)
     assert got['n'] == want['n'] == lw.size
     for k in STATS:
         _close(got[k], want[k], what=k)
+    return got
+
+
+@pytest.mark.parametrize('mesh', MESHES)
+@pytest.mark.parametrize('shape', [(8000,), (4000, 3)])
+def test_log_weight_stats_match_jax(mesh, shape):
+    _check_log_weight_stats(mesh, 1.5 * _rng(0).standard_normal(shape)
+                            - 40.0)
+
+
+def _dead_rows(n, S, dead):
+    """The rows of shard `dead` of the 8-way mesh (its counterpart, shard
+    ``dead * S // 8``, on an S-way sample axis), or every row."""
+    if dead == 'all':
+        return slice(None)
+    k = dead * S // 8
+    return slice(k * n // S, (k + 1) * n // S)
+
+
+@pytest.mark.parametrize('mesh', MESHES)
+@pytest.mark.parametrize('dead', [0, 3, 7, 'all'])
+def test_log_weight_stats_with_an_all_inf_shard_match_jax(mesh, dead):
+    """A shard whose log-weights are all -inf adds its count and nothing
+    to the rescaled moments (ROADMAP C.1); every shard -inf gives the JAX
+    package's NaN (exp(-inf - -inf))."""
+    lw = _rng(0).standard_normal(8000)
+    S = _meshes(mesh)[1].shape['sample']
+    lw[_dead_rows(lw.size, S, dead)] = -np.inf
+    got = _check_log_weight_stats(mesh, lw)
+    unsharded = pt.log_weight_stats(torch.as_tensor(lw))
+    for k in STATS:
+        _close(got[k], unsharded[k], what=k)
+    if dead == 'all':
+        assert np.isnan(got['mean_rescaled_alpha'])
+    else:
+        assert np.isfinite(got['mean_rescaled_alpha'])
+        assert np.isfinite(got['std_rescaled_alpha'])
+
+
+@pytest.mark.parametrize('mesh', MESHES)
+@pytest.mark.parametrize('dead', [3, 'all'])
+def test_bound_pass_with_an_all_inf_shard_matches_jax(mesh, dead):
+    """The bound pass through `_draw_shards`: a density that is -inf on
+    one shard's rows (its base draws moved where the density is -inf)
+    scored and reduced a shard at a time, then merged; its statistics
+    equal the JAX package's sharded statistics of the same log-weights."""
+    jm, tm = _meshes(mesh)
+    S, n = tm.shape['sample'], 8000
+    fam = pt.mean_field_gaussian_variational_family(2)
+    vp = torch.tensor([0.2, -0.1, -0.3, 0.1], dtype=torch.float64)
+    z = _rng(4).standard_normal((n, 2))
+    z[_dead_rows(n, S, dead), 0] += 1000.0
+
+    def density(x):
+        inside = -0.5 * torch.sum(x ** 2, dim=1)
+        return torch.where(x[:, 0] > 50.0, -torch.inf, inside)
+
+    out = sharded_pass(density, fam, vp, n, torch.as_tensor(z),
+                       tm.line('sample'), 2.0, tm.home())
+    lw = torch.cat([out['lw'][i] for i in range(S)]).numpy()
+    assert np.isneginf(lw[_dead_rows(n, S, dead)]).all()
+    want = jp.sharded_log_weight_stats(jp.shard_over(jnp.asarray(lw), jm,
+                                                     'sample'), jm)
+    got = out['stats'].numpy()
+    for j, k in enumerate(STATS):
+        _close(got[j], want[k], what=k)
+    assert np.isnan(got[1]) == (dead == 'all')
 
 
 @pytest.mark.parametrize('mesh', MESHES)

@@ -150,5 +150,40 @@ def test_generator_splits_into_distinct_deterministic_streams():
 
 
 def test_options_that_are_not_ported_raise():
-    with pytest.raises(NotImplementedError, match='plots'):
-        _small(None, plot_contours=True)
+    """Every option of `run_experiment` is ported: ``plot_contours=True``
+    draws the contours at the init and after each bound pass, and each
+    fit's history and distance to its final parameter (on the 2-D funnel,
+    headless), and changes no number; ``None`` plots a 2-D target."""
+    matplotlib = pytest.importorskip('matplotlib')
+    matplotlib.use('Agg')
+    import matplotlib.pyplot as plt
+
+    tm = tmodels.funnel_model()
+    fam = pt.mean_field_t_variational_family(2, 40)
+    init = np.array([0.0, -1.0, 1.0, 1.0])
+
+    def run(plot_contours):
+        return pt.run_experiment(
+            tm, fam, init, tm.true_mean, tm.true_cov,
+            generator=torch.Generator().manual_seed(3), device='cpu',
+            n_iters=40, bound_w2=2000, n_psis_samples=2000,
+            learning_rate=.01, plot_contours=plot_contours,
+            contour_kws=dict(xlim=(-5, 5)))
+
+    plt.close('all')
+    quiet = run(False)
+    assert plt.get_fignums() == []
+    try:
+        for plot_contours in (True, None):
+            plotted = run(plot_contours)
+            # the contours draw on the current figure, as the JAX
+            # package's do: the init's opens one, and each stage adds its
+            # history and distance figures
+            assert len(plt.get_fignums()) == 5
+            plt.close('all')
+            for i in (4, 5):
+                np.testing.assert_array_equal(plotted[i]['opt_param'],
+                                              quiet[i]['opt_param'])
+                assert plotted[i]['d2'] == quiet[i]['d2']
+    finally:
+        plt.close('all')

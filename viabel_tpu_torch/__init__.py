@@ -4,27 +4,30 @@ The PyTorch port of the JAX package `viabel_tpu`, for an NVIDIA H100.  It
 keeps the JAX package's module names, so each function has a counterpart
 of the same name there, and it imports neither JAX nor `viabel_tpu`.
 
-It carries six slices: the eight-schools validated-VI pipeline (the
-mean-field families, presampled KLVI, windowed adagrad, the bounds, PSIS,
-the fused pipeline `validated_vi`); R-hat-gated iterate averaging on
-Bayesian regression (`diagnostics`, the RMSProp/Adam IA optimizers, the
-regression models, `improve_with_psis`); the KLVI-against-CHIVI
-harness `run_experiment` (`black_box_chivi`, `init_from_moments`, the
-non-centred eight-schools and funnel models); and the batched pipelines
-`validated_vi_multistart` and `validated_vi_sweep`, the full-rank families
-with the Cholesky densities, and the rest of the objectives; and the
-command line ``python -m viabel_tpu_torch run`` / ``configs``
-(`__main__`, `config`) with checkpoint and resume (`checkpoint`), the
-segmented IA chain runs with progress and objectives that sample inside
-the step, the constrained-parameter transforms (`transforms`) and the
-normal-mixture model; and the HTTP posterior service
-(``python -m viabel_tpu_torch.serve``, `serve`), the in-repo HMC ground
-truth (`mcmc`: `hmc_sample`, `hmc_ground_truth`) and host-side log
+It carries every slice of the port: the eight-schools validated-VI
+pipeline (the mean-field families, presampled KLVI, windowed adagrad, the
+bounds, PSIS, the fused pipeline `validated_vi`); R-hat-gated iterate
+averaging on Bayesian regression (`diagnostics`, the RMSProp/Adam IA
+optimizers, the regression models, `improve_with_psis`); the
+KLVI-against-CHIVI harness `run_experiment` (`black_box_chivi`,
+`init_from_moments`, the non-centred eight-schools and funnel models); and
+the batched pipelines `validated_vi_multistart` and `validated_vi_sweep`,
+the full-rank families with the Cholesky densities, and the rest of the
+objectives; and the command line ``python -m viabel_tpu_torch run`` /
+``configs`` (`__main__`, `config`) with checkpoint and resume
+(`checkpoint`), the segmented IA chain runs with progress and objectives
+that sample inside the step, the constrained-parameter transforms
+(`transforms`) and the normal-mixture model; and the HTTP posterior
+service (``python -m viabel_tpu_torch.serve``, `serve`), the in-repo HMC
+ground truth (`mcmc`: `hmc_sample`, `hmc_ground_truth`) and host-side log
 densities (`models.make_callback_log_density`, the C++ densities of
-`native`); and the multi-device layer `parallel` (meshes of devices and
-of ranks, the bound pass and PSIS split over a ``sample`` axis, chains and
+`native`); and the multi-device layer `parallel` (meshes of devices and of
+ranks, the bound pass and PSIS split over a ``sample`` axis, chains and
 batched runs over a ``chain`` axis) behind the ``mesh=`` of every entry
-point.  The bound
+point; and the timing and profiling utilities `utils`, the benchmark
+``python -m viabel_tpu_torch bench`` (`bench`), the plots of `experiments`
+and perturbed objectives in the IA chains, with which every module of the
+JAX package has its counterpart.  The bound
 pass runs on hand-written CUDA kernels: K1, K3 and the combine in
 ``csrc/lw_stats.cu`` (`ops.lw_stats`), and K2, which draws a Gaussian q's
 samples in-kernel from a Philox stream, with ``philox_normal`` in

@@ -7,19 +7,19 @@ PyTorch port of viabel_tpu/__main__.py:
   (``--checkpoint-path``), the whole workflow as one pipeline call
   (``--fused``), the batched pipelines (``--starts``, ``--sweep-lr``);
 * ``configs`` — print an example config with all fields;
-* ``bench`` — not ported: the JAX package's ``bench`` times the JAX
-  package, and the port's benchmark is still to come, so it exits with a
-  message.
+* ``bench`` — the port's benchmark (`bench`): bench.py's configurations
+  through the port on the card, and bench.py's JSON line with the card's
+  numbers.
 
 The flags, their validation messages and the printed lines are the JAX
 package's, with two differences.  ``--device`` (default ``cuda``) names
 the device, and without a card, and without ``--device cpu``, ``run``
-fails.  On the card ``run`` places a single run's work as the JAX command
-line does, by `parallel.auto_mesh` over every rank's cards (one card: no
-mesh and no line), and its ``mesh:`` or ``note:`` line says where; the
-batched pipelines (``--starts``, ``--sweep-lr``) stay on one card, with a
-``note:`` line where there are more (`_report_batch`).  ``--device cpu``
-runs on one device.
+and ``bench`` fail.  On the card ``run`` places a single run's work as
+the JAX command line does, by `parallel.auto_mesh` over every rank's
+cards (one card: no mesh and no line), and its ``mesh:`` or ``note:``
+line says where; the batched pipelines (``--starts``, ``--sweep-lr``)
+stay on one card, with a ``note:`` line where there are more
+(`_report_batch`).  ``--device cpu`` runs on one device.
 
 Examples
 --------
@@ -27,6 +27,7 @@ python -m viabel_tpu_torch run --model funnel --n-iters 2000
 python -m viabel_tpu_torch run --config my_experiment.json
 python -m viabel_tpu_torch run --model funnel --n-iters 200 --device cpu
 python -m viabel_tpu_torch configs
+python -m viabel_tpu_torch bench
 """
 import argparse
 import dataclasses
@@ -293,9 +294,8 @@ def _run_batched(args, cfg, model, family, objective, opt_gen, device):
 
 
 def _cmd_bench(args):
-    sys.exit('bench is not ported yet: the JAX package\'s bench times the '
-             'JAX package (bench.py), and the port\'s own benchmark is '
-             'still to come (ROADMAP queue A)')
+    from .bench import main as bench_main
+    bench_main(device=_device(args))
 
 
 def _cmd_configs(args):
@@ -360,7 +360,11 @@ def main(argv=None):
                          'kernels\' plain versions)')
     pr.set_defaults(fn=_cmd_run)
 
-    pb = sub.add_parser('bench', help='not ported yet (exits with a message)')
+    pb = sub.add_parser('bench', help='benchmark the eight-schools story '
+                        '(bench.py\'s configurations) on the card')
+    pb.add_argument('--device', default='cuda',
+                    help='the device to run on (default cuda; cpu runs the '
+                         'kernels\' plain versions)')
     pb.set_defaults(fn=_cmd_bench)
 
     pc = sub.add_parser('configs', help='print an example config')

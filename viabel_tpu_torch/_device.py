@@ -34,6 +34,9 @@ __all__ = ['resolve_device', 'fp32_matmul_policy', 'default_generator',
 # service's readers, `serve.PosteriorService`) holds it around that work
 # (`between_captures`), so it waits at most one capture, never a whole run.
 _capture_lock = threading.Lock()
+# the counters of the `utils.count_compilations` blocks now running; each
+# capture adds one to every one
+_capture_counters = []
 
 
 def capture(body, stream):
@@ -46,6 +49,8 @@ def capture(body, stream):
             body()
         finally:
             graph.capture_end()
+    for counter in _capture_counters:
+        counter[0] += 1
     return graph
 
 

@@ -189,6 +189,16 @@ def _compute_norm_if_needed(var):
     return var
 
 
+def mean_bound(Wp):
+    """|E_p[x] - E_q[x]| <= W_p (viabel_tpu/bounds.py:323-325)."""
+    return Wp
+
+
+def std_bound(W2):
+    """Stdev error bound (viabel_tpu/bounds.py:328-330)."""
+    return W2
+
+
 def var_bound(W2, var1, var2=None):
     """Covariance error bound ``2 (min_std W2 + W2^2)``, saturating to
     inf (viabel_tpu/bounds.py:333-345)."""
@@ -206,8 +216,8 @@ def error_bounds(W1=np.inf, W2=np.inf, q_var=np.inf, p_var=np.inf):
     """Mean / stdev / covariance error bounds from Wasserstein bounds
     (viabel_tpu/bounds.py:348-356)."""
     results = dict()
-    results['mean_error'] = min(W1, W2)
-    results['std_error'] = W2
+    results['mean_error'] = mean_bound(min(W1, W2))
+    results['std_error'] = std_bound(W2)
     results['cov_error'] = var_bound(W2, _compute_norm_if_needed(q_var),
                                      _compute_norm_if_needed(p_var))
     return results

@@ -4,8 +4,10 @@ PSIS-correct.
 PyTorch port of viabel_tpu/experiments.py:39-184 and 283-387 (the
 reporting helpers, `get_samples_and_log_weights`, `psis_correction`,
 `improve_with_psis`, and `run_experiment`: KLVI then CHIVI, each followed
-by a bound pass and PSIS) and `improve_with_psis_sharded` (the same PSIS
-correction split over a mesh, `parallel`).  The plots are not ported.
+by a bound pass and PSIS), `improve_with_psis_sharded` (the same PSIS
+correction split over a mesh, `parallel`) and the plots of
+viabel_tpu/experiments.py:215-278, which need matplotlib (imported when a
+plot is drawn).
 
 `draw_and_score` and `get_samples_and_log_weights` decide how a bound
 pass scores its samples:
@@ -38,11 +40,14 @@ from .ops import lw_stats as _lw_ops
 from .ops.philox import philox_seed
 from .optimizers import adagrad_optimize
 from .psis import psislw, weighted_moments
+from .utils import format_seconds
 
 __all__ = [
     'print_bounds', 'check_accuracy', 'check_approx_accuracy',
     'get_samples_and_log_weights', 'draw_and_score', 'psis_correction',
     'improve_with_psis', 'improve_with_psis_sharded', 'run_experiment',
+    'plot_approx_and_exact_contours', 'plot_history',
+    'plot_dist_to_opt_param',
 ]
 
 # families whose transform is mean + exp(log_scale) * z with a base density
@@ -263,22 +268,74 @@ def improve_with_psis_sharded(log_density, var_family, var_param, n_samples,
     return res, mean, cov
 
 
+def plot_approx_and_exact_contours(log_density, var_family, var_param,
+                                   xlim=(-10, 10), ylim=(-3, 3),
+                                   cmap2='Reds', savepath=None,
+                                   aux_var=None):
+    """Contours of the target's density and of q's on a 100 x 100 grid
+    (viabel_tpu/experiments.py:217-243); `aux_var`, when given, is
+    appended to the variational parameter.  The densities are evaluated
+    in torch on the parameter's device and dtype, the grid's values then
+    brought to numpy for matplotlib."""
+    var_param = torch.as_tensor(var_param)
+    if aux_var is not None:
+        var_param = torch.cat([var_param, torch.atleast_1d(torch.as_tensor(
+            aux_var, dtype=var_param.dtype, device=var_param.device))])
+    import matplotlib.pyplot as plt
+    xlist = np.linspace(*xlim, 100)
+    ylist = np.linspace(*ylim, 100)
+    X, Y = np.meshgrid(xlist, ylist)
+    XY = torch.as_tensor(np.stack([X.ravel(), Y.ravel()], axis=1),
+                         dtype=var_param.dtype, device=var_param.device)
+    with torch.no_grad():
+        Z = _host(torch.exp(log_density(XY))).reshape(X.shape)
+        Zapprox = _host(torch.exp(var_family.log_prob(var_param, XY))
+                        ).reshape(X.shape)
+    plt.contour(X, Y, Z, cmap='Greys', linestyles='solid')
+    plt.contour(X, Y, Zapprox, cmap=cmap2, linestyles='solid')
+    if savepath is not None:
+        plt.savefig(savepath, bbox_inches='tight')
+    plt.show()
+
+
+def plot_history(history, B=None, ylabel=None):
+    """A moving average of an optimization trace, log-scaled when the
+    smoothed trace is positive throughout (viabel_tpu/experiments.py:
+    246-265).  `B` is the averaging window; default a tenth of the trace,
+    at most 500."""
+    import matplotlib.pyplot as plt
+    history = _host(history).astype(float)
+    B = max(1, min(500, history.size // 10) if B is None else B)
+    csum = np.concatenate([[0.0], np.cumsum(history)])
+    smoothed = (csum[B:] - csum[:-B]) / B
+    _, ax = plt.subplots()
+    ax.plot(smoothed)
+    if np.all(smoothed > 0):
+        ax.set_yscale('log')
+    ax.set_xlabel('iteration')
+    if ylabel is not None:
+        ax.set_ylabel(ylabel)
+    plt.show()
+
+
+def plot_dist_to_opt_param(var_param_history, opt_param):
+    """The Euclidean distance of each iterate to the final parameter
+    (viabel_tpu/experiments.py:268-278)."""
+    import matplotlib.pyplot as plt
+    gap = _host(var_param_history) - _host(opt_param)
+    _, ax = plt.subplots()
+    ax.plot(np.sqrt(np.sum(gap * gap, axis=1)))
+    ax.set_title('convergence toward the final parameter')
+    ax.set_xlabel('iteration')
+    ax.set_ylabel('distance to optimum')
+    plt.show()
+
+
 def _stage_banner(name):
     """Section header of the experiment's console log
     (viabel_tpu/experiments.py:283-287)."""
     print()
     print('======== {} ========'.format(name), flush=True)
-
-
-def _format_seconds(secs):
-    """viabel_tpu/utils/timers.py:14-22."""
-    if secs < 1e-3:
-        t, u = secs * 1e6, 'microsec'
-    elif secs < 1e0:
-        t, u = secs * 1e3, 'millisec'
-    else:
-        t, u = secs, 'sec'
-    return '{:.03f} {}'.format(t, u)
 
 
 def _wall(fn, device):
@@ -313,11 +370,15 @@ def _samples_and_log_weights(log_density, var_family, var_param, n_samples,
 
 def _optimize_and_check_results(log_density, var_family, objective_and_grad,
                                 init_var_param, true_mean, true_cov,
-                                streams, elbo=None, n_iters=5000,
+                                streams, plot_contours=False, ylabel=None,
+                                contour_kws=None, elbo=None, n_iters=5000,
                                 bound_w2=True, verbose=False, use_psis=True,
                                 n_psis_samples=1000000, **kwargs):
     """One stage of `run_experiment`: adagrad, the accuracy check, the
-    bound pass and PSIS (viabel_tpu/experiments.py:290-345).
+    bound pass and PSIS (viabel_tpu/experiments.py:290-345); with
+    `plot_contours` the objective's history (labelled `ylabel`) and the
+    distance to the fit after the fit, and the contours after the bound
+    pass.
 
     `streams` is ``(optimizer, bound pass, PSIS)``: each a generator, or
     the draws themselves (the optimizer's ``(n_iters, n_mc, d)`` block, the
@@ -336,6 +397,9 @@ def _optimize_and_check_results(log_density, var_family, objective_and_grad,
                           _) = _wall(lambda: adagrad_optimize(
                               n_iters, objective_and_grad, init_var_param,
                               device=device, **kwargs), device)
+    if plot_contours:
+        plot_history(value_history, ylabel=ylabel)
+        plot_dist_to_opt_param(var_param_history, opt_param)
     accuracy_results = check_approx_accuracy(var_family, opt_param,
                                              true_mean, true_cov, verbose)
     other_results = dict(opt_param=_host(opt_param),
@@ -361,10 +425,13 @@ def _optimize_and_check_results(log_density, var_family, objective_and_grad,
         seconds['bounds'], bounds = _wall(bound_pass, device)
         other_results.update(bounds)
         print('bound estimation (CUBO + ELBO, {:,} MC samples) took {} to '
-              'run'.format(n_samples, _format_seconds(seconds['bounds'])))
+              'run'.format(n_samples, format_seconds(seconds['bounds'])))
         if verbose:
             print()
             print_bounds(other_results)
+    if plot_contours:
+        plot_approx_and_exact_contours(log_density, var_family, opt_param,
+                                       **(contour_kws or {}))
     if use_psis:
         _stage_banner('PSIS-corrected moments')
 
@@ -381,19 +448,20 @@ def _optimize_and_check_results(log_density, var_family, objective_and_grad,
 
 
 def _run_stages(log_density, var_family, klvi, chivi, init_param, true_mean,
-                true_cov, kl_streams, chivi_streams, **kwargs):
+                true_cov, kl_streams, chivi_streams, plot_contours=False,
+                **kwargs):
     """KLVI's stage, then CHIVI's with KLVI's ``log_norm_bound`` as its
     ELBO (viabel_tpu/experiments.py:374-387), each on its streams."""
     _stage_banner('KLVI')
     kl_results, other_kl_results = _optimize_and_check_results(
         log_density, var_family, klvi, init_param, true_mean, true_cov,
-        kl_streams, **kwargs)
+        kl_streams, plot_contours, '-ELBO', **kwargs)
     kl_results['method'] = 'KLVI'
     _stage_banner('CHIVI')
     elbo = other_kl_results.get('log_norm_bound')
     chivi_results, other_chivi_results = _optimize_and_check_results(
         log_density, var_family, chivi, init_param, true_mean, true_cov,
-        chivi_streams, elbo=elbo, **kwargs)
+        chivi_streams, plot_contours, 'CUBO', elbo=elbo, **kwargs)
     chivi_results['method'] = 'CHIVI'
     return (klvi, chivi, kl_results, chivi_results, other_kl_results,
             other_chivi_results)
@@ -414,16 +482,18 @@ def run_experiment(log_density, var_family, init_param, true_mean, true_cov,
     is split into KLVI's and CHIVI's generators, and each of those into
     the optimizer's, the bound pass's and PSIS's, six streams in all.
     `kwargs` go to each stage (`n_iters`, `bound_w2`, `n_psis_samples`,
-    `use_psis`, `verbose`) and on to `adagrad_optimize` (the learning
-    rates, `window`, ``has_log_norm``, False by default).  The plots are
-    not ported: ``plot_contours=True`` raises NotImplementedError.
+    `use_psis`, `verbose`, `contour_kws`) and on to `adagrad_optimize`
+    (the learning rates, `window`, ``has_log_norm``, False by default).
+
+    With `plot_contours` the contours of the target and of q are drawn at
+    the init and after each bound pass, and each fit's objective history
+    and distance to its final parameter after the fit
+    (viabel_tpu/experiments.py:305-309, 333-335, 364-371); ``None`` draws
+    them for a 2-D target when matplotlib imports.
 
     Returns ``(klvi, chivi, kl_results, chivi_results, other_kl_results,
     other_chivi_results)`` as the JAX package does, the arrays in numpy.
     """
-    if plot_contours:
-        raise NotImplementedError('the contour and history plots are not '
-                                  'ported (ROADMAP A.9)')
     device = resolve_device(device)
     if generator is None:
         generator = default_generator(device)
@@ -432,7 +502,18 @@ def run_experiment(log_density, var_family, init_param, true_mean, true_cov,
     chivi = black_box_chivi(alpha, var_family, log_density, chivi_n_samples,
                             presampled=presampled)
     init_param = torch.as_tensor(init_param, device=device)
+    true_mean = np.asarray(true_mean)
+    if plot_contours is None:
+        try:
+            import matplotlib  # noqa: F401
+            plot_contours = true_mean.size == 2
+        except ImportError:
+            plot_contours = False
+    if plot_contours:
+        plot_approx_and_exact_contours(log_density, var_family, init_param,
+                                       **kwargs.get('contour_kws', {}))
     kl_gen, chivi_gen = _split(generator, 2)
     return _run_stages(log_density, var_family, klvi, chivi, init_param,
-                       np.asarray(true_mean), true_cov, _split(kl_gen, 3),
-                       _split(chivi_gen, 3), **kwargs)
+                       true_mean, true_cov, _split(kl_gen, 3),
+                       _split(chivi_gen, 3), plot_contours=plot_contours,
+                       **kwargs)

@@ -52,18 +52,19 @@ def vectorize_log_density(log_density):
 
 
 def map_draws(fn, draws):
-    """``fn`` applied to a tensor of draws, or to each entry of a dict of
-    them (the full-rank Student-t family's ``{'z', 'chi2'}``)."""
+    """``fn`` applied to a tensor of draws, or to each tensor of a dict of
+    them, nested dicts included (the full-rank Student-t family's ``{'z',
+    'chi2'}``; a perturbed objective's ``{'noise', 'draws'}``)."""
     if isinstance(draws, dict):
-        return {k: fn(v) for k, v in draws.items()}
+        return {k: map_draws(fn, v) for k, v in draws.items()}
     return fn(draws)
 
 
 def stack_draws(blocks):
     """Stack a list of draws along a new leading axis, entry by entry for
-    dict draws."""
+    dict draws (nested dicts included)."""
     if isinstance(blocks[0], dict):
-        return {k: torch.stack([b[k] for b in blocks]) for k in blocks[0]}
+        return {k: stack_draws([b[k] for b in blocks]) for k in blocks[0]}
     return torch.stack(blocks)
 
 
@@ -297,7 +298,12 @@ def perturbed_black_box_vi(var_family, log_density, n_samples,
     (P,) and then the base draws of the ``n_samples`` samples, and returns
     the KLVI value and gradient at ``var_param + perturbation_scale *
     noise``.  ``perturbed_objective(var_param, noise, draws)`` is the same
-    objective as a pure function of both draws."""
+    objective as a pure function of both draws.
+    ``iteration_draws(generator, dtype)`` draws ``{'noise', 'draws'}`` as
+    an evaluation does (the JAX package splits iteration i's key into the
+    noise's key and the sample key), and the objective given that dict in
+    place of a generator evaluates `perturbed_objective` on it, which is
+    how the IA optimizers' batched chain step feeds it."""
 
     def perturbed_objective(var_param, noise, draws):
         perturbed = var_param + perturbation_scale * noise
@@ -306,15 +312,21 @@ def perturbed_black_box_vi(var_family, log_density, n_samples,
                        + torch.mean(log_density(samples)))
         return -lower_bound
 
-    def objective(var_param, generator):
-        noise = torch.randn(var_param.shape, generator=generator,
-                            dtype=var_param.dtype, device=generator.device)
-        draws = var_family.base_sample(generator, n_samples, var_param.dtype)
-        return perturbed_objective(var_param, noise, draws)
+    def iteration_draws(generator, dtype=torch.float32):
+        noise = torch.randn((var_family.var_param_dim,), generator=generator,
+                            dtype=dtype, device=generator.device)
+        return dict(noise=noise, draws=var_family.base_sample(
+            generator, n_samples, dtype))
+
+    def objective(var_param, rng_or_drawn):
+        drawn = (iteration_draws(rng_or_drawn, var_param.dtype)
+                 if isinstance(rng_or_drawn, torch.Generator)
+                 else rng_or_drawn)
+        return perturbed_objective(var_param, drawn['noise'],
+                                   drawn['draws'])
 
     objective_and_grad = _klvi_objective(objective, False, var_family,
                                          n_samples, log_density)
     objective_and_grad.perturbed_objective = perturbed_objective
-    # it draws its perturbation noise too: no base draws stand in for it
-    objective_and_grad.iteration_draws = None
+    objective_and_grad.iteration_draws = iteration_draws
     return objective_and_grad

@@ -823,12 +823,6 @@ def _ia_optimize(kind, perturb_scale, n_iters, objective_and_grad,
     (viabel_tpu/optimizers.py:792-842): segmented (`_chains_run_segmented`)
     when `checkpoint_path` or `progress` is set, else one segment."""
     presampled = getattr(objective_and_grad, 'presampled', False)
-    if not presampled and getattr(objective_and_grad, 'iteration_draws',
-                                  None) is None:
-        raise NotImplementedError(
-            'the IA optimizers take the port\'s objectives: presampled, or '
-            'sampling inside the step with `iteration_draws` (a '
-            'perturbed objective has none)')
     step = _batched_step(objective_and_grad, has_log_norm)
     if mesh is not None:
         device = mesh.home()

@@ -22,6 +22,8 @@ seeded with ``ops.philox.fold_in(seed, i)``, the counterpart of the JAX
 package's ``fold_in(key, idx)``.  A shard's kernel that fails to build or
 launch fails the pass: nothing falls back to a plain version on a card.
 """
+import math
+
 import numpy as np
 import torch
 
@@ -49,9 +51,19 @@ __all__ = [
 
 def _stats_row(stats, n):
     """A shard's (5,) statistics as one Chan row of the combine's partials
-    layout: ``[count, max, mean_e, M2_e, mean_lw, M2_lw]``, M2 = n std^2."""
+    layout: ``[count, max, mean_e, M2_e, mean_lw, M2_lw]``, M2 = n std^2.
+
+    A shard whose log-weights are all -inf has NaN e-moments of its own
+    (``exp(-inf - -inf)``); against any finite pooled max its weights are
+    0, so its row takes ``mean_e = M2_e = 0``, the rule of a chunk of -inf
+    alone (`ops.lw_stats._rows_partials`).  Its lw moments stay -inf and
+    NaN, and against a pooled max of -inf the combine's rescale still
+    gives NaN, as the JAX package does."""
     nt = torch.full((), float(n), dtype=stats.dtype, device=stats.device)
-    return torch.stack([nt, stats[0], stats[1], stats[2] * stats[2] * nt,
+    empty = stats[0] == -math.inf
+    zero = torch.zeros_like(stats[1])
+    return torch.stack([nt, stats[0], torch.where(empty, zero, stats[1]),
+                        torch.where(empty, zero, stats[2] * stats[2] * nt),
                         stats[3], stats[4] * stats[4] * nt])
 
 

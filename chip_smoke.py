@@ -43,15 +43,20 @@ result line:
    adagrad run as a replayed graph) against the same on the CPU (plain
    versions), float64, on shared draws; then the graph run against the
    eager run of the same body on the card, float64, 2000 iterations, KLVI
-   and CHIVI (1e-10 relative);
+   and CHIVI, and 200 iterations of the large-d fit's KLVI (d = 100, P =
+   5150, whose step is a cluster launch) (1e-10 relative);
 5. where its time goes, at steady state: ``validated_vi`` again, the
    bound pass's draws and fused score, PSIS; the optimizer alone (KLVI
    and CHIVI on eight-schools CP, 2000 iterations, float32) through the
    graph and through the eager loop in turns (graph, eager, eager, graph),
    and under each the card's busy share and kernels an iteration
    (``torch.profiler``; a trace without device time fails the run); the
-   step kernel against its plain version (float64 and float32) and their
-   times;
+   step kernel against its plain version (float64 and float32; KLVI
+   passes no log-norm), then its times at P = 20 with the shape
+   ``ops.adagrad.launch_shape`` chose: L2 flushed (events and the
+   trace), hot in L2 inside a replayed CUDA graph (the trace), the plain
+   version's, and the launch floor (an empty kernel of the same library
+   launched with the same shape) both ways;
 6. the regression path, with every launch count set to 0 just before it
    and read just after: ``rmsprop_IA_optimize_with_rhat`` on Bayesian
    linear regression (N = 100, D = 10, 4 chains, 5000 iterations, n_mc =
@@ -96,10 +101,13 @@ result line:
     its reason; K1 also ragged and off alignment), then K1's times with
     each density beside its plain version's and its bound, printed as
     per-model rows;
-12. the step kernel with one block a run against its plain version (K 1,
-    4, 16; P 4 and 5150; float64 to 1e-12, float32 to 2e-5 relative plus
-    8 ulps of the largest value), then its times at (K 16, P 4) and (K 1,
-    P 5150);
+12. every instance of the step kernel against its plain version (one
+    block a run and clusters of blocks, window 10 and the runtime window
+    7, with and without a log-norm: K 1, 4, 16 at P 4 and 5150, (1, 20),
+    (2, 5150), (1, 45450), the P on each side of the one-block / cluster
+    switch; float64 to 1e-12, float32 to 2e-5 relative plus 8 ulps of the
+    largest value), each case with ``launch_shape``'s choice, then phase
+    5's times at (K 16, P 4), (K 1, P 5150) and (K 1, P 45450);
 
 13. the robust-regression multistart (benchmarks/khat_noise.py:183-207,
     nothing cut), with every launch count set to 0 just before it and read
@@ -123,12 +131,18 @@ result line:
     ends rate / 10, 5000 iterations, 1e5 bound samples; finite khats and
     d2s; K1, the combine and the step kernel (one batched launch an
     iteration, four learning-rate tables) must have launched;
-15. examples/large_d.py's default, counted the same way: ``validated_vi``
-    with a full-rank Gaussian at d = 100 (P = 5150) on the N = 400
-    conjugate regression, from the prior, n_mc 800, 10000 iterations, lr
-    0.05 -> 0.001, 1e6 bound samples; the example's own criterion (khat
-    < 0.7, |mean - truth| < 0.05) must hold; K3, the combine and the step
-    kernel at P = 5150 must have launched;
+15. (a) examples/large_d.py's default, counted the same way:
+    ``validated_vi`` with a full-rank Gaussian at d = 100 (P = 5150) on
+    the N = 400 conjugate regression, from the prior, n_mc 800, 10000
+    iterations, lr 0.05 -> 0.001, 1e6 bound samples; the example's own
+    criterion (khat < 0.7, |mean - truth| < 0.05) must hold; K3, the
+    combine and the step kernel at P = 5150 must have launched; (b) the
+    same at examples/large_d.py ``--full``'s d = 300 (P = 45450, N 1200,
+    40000 iterations, nothing cut: the presampled block is 38.4 GB), its
+    wall, khat, d2, errors and peak memory, held to the same criterion and
+    counted the same way; then 200 of its iterations through the graph
+    under ``torch.profiler``: the step kernel's share of an iteration,
+    kernels an iteration and the 8 kernels that take the most card time;
 16. the batched pipelines (each of phase 13's configurations, 4 runs at
     their own rates) and a full-rank t ``validated_vi`` at a small size on
     the card against the CPU, float64, on shared draws (1e-10 relative);
@@ -236,7 +250,7 @@ result line:
 
 The line before the last is a JSON object with one entry per kernel:
 route, source, the TPU kernel it replaces, launches on the paths of phases
-2, 6, 10, 13, 14, 15, 17, 18, 19, 21 and 22 (summed), the float32 max abs
+2, 6, 10, 13, 14, 15 (a) and (b), 17, 18, 19, 21 and 22 (summed), the float32 max abs
 error, its time by
 events around the call (``ms``) and on the card (``device_ms``), the plain
 version's time, its bound (the larger of bytes over 3.35 TB/s and
@@ -247,8 +261,10 @@ instructions) and the library call's time (``torch.randn`` for
 ``philox_normal``; no single PyTorch call computes the others, so theirs
 is null).  The adagrad step's row replaces no Pallas kernel but the body
 of the JAX package's compiled scan; its launches are its executions,
-graph replays included, and its ``instances`` are phase 12's timed rows
-(a batch of 16 runs, and P = 5150).  The last line is
+graph replays included, and its ``instances`` (phase 12's timed rows: a
+batch of 16 runs, P = 5150 and P = 45450) add ``graph_device_ms``,
+``floor_device_ms``, ``floor_graph_device_ms`` and ``launch_shape`` (phase
+5's log gives them for its own row, P = 20).  The last line is
 ``{"ok": true, "device": {...}}``.
 """
 import contextlib
@@ -320,6 +336,16 @@ TPU_BAND = {'full-rank t KLVI': (-0.685, 0.165)}
 SWEEP_RATES, SWEEP_ITERS = (0.003, 0.01, 0.03, 0.1), 5000
 # examples/large_d.py's default: d = 100 (P = 5150), full-rank Gaussian
 LD_D, LD_ITERS, LD_MC, LD_BOUND = 100, 10000, 800, 1_000_000
+# examples/large_d.py --full: d = 300 (P = 45450), 40000 iterations, the
+# rest as the default.  Its presampled (40000, 800, 300) float32 block is
+# 38.4 GB, and the bound pass's (1e6, 1200) means 4.8 GB each, within the
+# card's 80 GB, so nothing is cut.  Then 200 iterations under the profiler
+LD_FULL_D, LD_FULL_ITERS, LD_PROFILE_ITERS = 300, 40000, 200
+# the JAX package's fits of the same configurations (benchmarks/
+# DIM_SCALING.md, its TPU runs), printed for the record
+LD_JAX = {100: 'khat +0.045, |mean - truth| 0.0010',
+          300: 'khat +0.50, d2 2.2, |mean - truth| 0.0006, rel cov err '
+               '0.040'}
 # phase 17: the command line on the card.  (c) and (d) run 2000
 # iterations, (e) the quick mode of examples/eight_schools_ia.py (2250 and
 # 2750 of 9000 and 11000), to keep the eager IA chain steps within about a
@@ -412,6 +438,7 @@ _MANGLED = (('LoadedDraws', 'transform_score_partials'),
             ('adagrad_step_kernel', 'adagrad_step'))
 # the wrapper -> the part of its device kernel's name that a trace shows
 KERNEL_KEY = {wrapper: key for key, wrapper in _MANGLED}
+FLOOR_KEY = 'launch_floor_kernel'  # the empty kernel of csrc/adagrad.cu
 RANDN_KEY = 'distribution_elementwise'  # torch.randn's kernel, in a trace
 
 
@@ -450,7 +477,11 @@ def log_ptxas(text, only=''):
                      else '')
             maxd = next((label for key, label in (
                 ('Li10ELi10E', 'd=10'), ('Li2ELi2E', 'd=2'),
-                ('Li32ELi0E', 'd<=32'))
+                ('Li32ELi0E', 'd<=32'),
+                ('Li10ELb1E', 'window 10, cluster'),
+                ('Li10ELb0E', 'window 10, one block'),
+                ('Li0ELb1E', 'runtime window, cluster'),
+                ('Li0ELb0E', 'runtime window, one block'))
                 if key in mangled), '')
             kernel = ' '.join(w for w in (name, dtype, maxd) if w)
         elif only in kernel and ('registers' in line or 'spill' in line):
@@ -495,22 +526,34 @@ def device_ms(fn, key, reps=10, attempts=6, clean=False):
     the kernel is taken again after a pause, `attempts` times in all; then
     this returns None (not measured).  It times, and checks nothing: the
     kernels' launches and results are held elsewhere."""
-    from torch.profiler import ProfilerActivity, profile
-
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32, device='cuda')
     fn()
+
+    def run():
+        for _ in range(reps):
+            if clean:
+                flush.sum()
+            else:
+                flush.zero_()
+            fn()
+
+    return traced_kernel_ms(run, key, attempts)
+
+
+def traced_kernel_ms(run, key, attempts=6):
+    """Mean duration on the card of the kernels whose name holds `key` in
+    a ``torch.profiler`` trace of ``run()``, taken again after a pause
+    when it holds none, `attempts` times in all; then None (not
+    measured)."""
+    from torch.profiler import ProfilerActivity, profile
+
     for attempt in range(attempts):
         if attempt:
             time.sleep(1.0)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                if clean:
-                    flush.sum()
-                else:
-                    flush.zero_()
-                fn()
+            run()
             torch.cuda.synchronize()
         hits = [e for e in prof.key_averages()
                 if e.device_type == torch.autograd.DeviceType.CUDA
@@ -522,6 +565,30 @@ def device_ms(fn, key, reps=10, attempts=6, clean=False):
     log('  {} profiler traces held no kernel named *{}*: not measured'
         .format(attempts, key))
     return None
+
+
+def graph_device_ms(fn, key, steps=20, replays=10):
+    """Mean duration on the card of the kernel whose name holds `key` as a
+    path finds it: ``fn()`` captured `steps` times in one CUDA graph
+    (through `_device.capture`, as the optimizers capture) and the graph
+    replayed `replays` times under ``torch.profiler``, each launch finding
+    in L2 what the one before left there (`traced_kernel_ms`)."""
+    from viabel_tpu_torch._device import capture
+
+    main = torch.cuda.current_stream()
+    side = torch.cuda.Stream()
+    side.wait_stream(main)
+    with torch.cuda.stream(side):
+        fn()
+    graph = capture(lambda: [fn() for _ in range(steps)], side)
+    main.wait_stream(side)
+    graph.replay()
+
+    def run():
+        for _ in range(replays):
+            graph.replay()
+
+    return traced_kernel_ms(run, key)
 
 
 def check_close(name, got, want, atol, rtol):
@@ -832,8 +899,7 @@ def timed_row(name, kernel, plain, nbytes, nops, err, n, library=None,
     log('{}: {:.4f} ms by events around the call, {} ms on the card by '
         'the profiler (plain {:.4f} ms, library {}), bound {:.4f} ms by {} '
         '({} B, {} ops), float32, n = {}'.format(
-            label, ms, 'not measured' if dev_ms is None
-            else '{:.4f}'.format(dev_ms), plain_ms,
+            label, ms, fmt_ms(dev_ms), plain_ms,
             'none' if library_ms is None
             else '{:.4f} ms'.format(library_ms), row['bound_ms'],
             row['bound_by'], nbytes, nops, n))
@@ -902,11 +968,19 @@ def adagrad_run(inputs, n_iters, driver, keep_history=False):
                         keep_history=keep_history, driver=driver)
 
 
+# phase 4's graph against eager at the large-d fit's P = 5150 (a cluster
+# step), float64, n_mc 100
+GRAPH_LD_ITERS = 200
+
+
 def graph_against_eager(vt, model, fam):
     """The graph run against the eager run of the same body on the card,
     float64, 2000 iterations, KLVI and CHIVI on shared draws, with the
     history kept: values, log-norms, params and the tail mean to 1e-10
-    relative."""
+    relative; then the same for `GRAPH_LD_ITERS` iterations of the large-d
+    fit's KLVI (d = 100), whose step is a cluster launch."""
+    from viabel_tpu_torch.optimizers import _wrap_objective
+
     for objective in ('KLVI', 'CHIVI'):
         inputs = adagrad_inputs(vt, model, fam, objective, N_OPT_ALONE,
                                 torch.float64, 5)
@@ -917,15 +991,31 @@ def graph_against_eager(vt, model, fam):
             check_close('{} {} (graph vs eager, float64, {} iterations)'
                         .format(objective, key, N_OPT_ALONE),
                         outs['graph'][j], outs['eager'][j], 1e-300, 1e-10)
+    # a step that is a cluster launch: the large-d fit's P = 5150
+    from viabel_tpu_torch.ops.adagrad import launch_shape
+    model, fam, init = large_d_setup(vt, LD_D)
+    obj = vt.black_box_klvi(fam, model, 100, presampled=True)
+    draws = obj.make_draws(card_generator(5), GRAPH_LD_ITERS, torch.float64)
+    log('large-d KLVI step, float64: {}'.format(launch_shape(
+        1, fam.var_param_dim, WINDOW, torch.float64).describe()))
+    outs = {driver: adagrad_run((_wrap_objective(obj, None), init.double(),
+                                 draws), GRAPH_LD_ITERS, driver, True)
+            for driver in ('graph', 'eager')}
+    for key, j in (('values', 0), ('log_norms', 1), ('params', 2),
+                   ('tail mean', 3)):
+        check_close('large-d KLVI {} (graph vs eager, float64, {} '
+                    'iterations)'.format(key, GRAPH_LD_ITERS),
+                    outs['graph'][j], outs['eager'][j], 1e-300, 1e-10)
 
 
 def step_kernel_check(vt, model, fam):
     """The step kernel against its plain version on the card, float64 and
     float32: the same gradients, values and log-norms (those of the
-    objective along a KLVI or CHIVI run's first iterations) fed to two
-    copies of one state, 3 windows' worth of steps with the tail from
-    iteration 0 and the history kept; then its time beside the plain
-    version's, at the steady state of the ring.  Returns the timed row."""
+    objective along a KLVI or CHIVI run's first iterations; KLVI has none
+    and passes None, as the drivers do) fed to two copies of one state, 3
+    windows' worth of steps with the tail from iteration 0 and the history
+    kept; then its times beside the plain version's, at the steady state
+    of the ring (`step_row`).  Returns the timed row."""
     from viabel_tpu_torch.ops import adagrad as aops
 
     n_steps = 3 * WINDOW + 7
@@ -941,7 +1031,8 @@ def step_kernel_check(vt, model, fam):
             states = [s._replace(tail_start=0) for s in states]
             for i in range(n_steps):
                 value, grad, log_norm = obj(states[1].param, draws[i])
-                args = (grad.to(dtype), value.to(dtype), log_norm.to(dtype))
+                args = (grad.to(dtype), value.to(dtype),
+                        None if log_norm is None else log_norm.to(dtype))
                 aops.adagrad_step(states[0], *args)
                 aops.adagrad_step_plain(states[1], *args)
             for key in ('param', 'values', 'log_norms', 'params',
@@ -953,35 +1044,80 @@ def step_kernel_check(vt, model, fam):
                 if dtype == torch.float32:
                     err = max(err or 0.0, e)
     # the time of one step at P = 20, window 10, the ring full, the history
-    # kept and the tail summed (the most a step does)
+    # kept and the tail summed (the most a step does), with no log-norm (the
+    # KLVI path's step)
     obj, init, draws = adagrad_inputs(vt, model, fam, 'KLVI', 1,
                                       torch.float32, 7)
-    value, grad, log_norm = obj(init, draws[0])
-    n_time = 4096
-    state = aops.new_state(init, torch.full((n_time,), 0.01), WINDOW, 0.1,
-                           True)._replace(tail_start=0)
+    value, grad, _ = obj(init, draws[0])
+    state = aops.new_state(init, torch.full((STEP_TABLE,), 0.01), WINDOW,
+                           0.1, True)._replace(tail_start=0)
     state.counter.fill_(WINDOW)
-    P = init.shape[0]
-    # bytes: grad, the ring (window rows and log-norms), param, the tail
-    # sum, lr, value, log-norm and the counter read; param, the new ring
-    # slot and log-norm, the history row, the tail sum, value, log-norm and
-    # the counter written.  Operations: an exp, 2 multiplies and an FMA a
-    # slot and coordinate, and ~6 a coordinate for the update
-    nbytes = 4 * (P * (WINDOW + 3) + WINDOW + 3) + 8 \
-        + 4 * (4 * P + 3) + 8
-    nops = P * (5 * WINDOW + 6)
     _, plain_kernels, _ = profile_busy(
-        lambda: aops.adagrad_step_plain(state, grad, value, log_norm))
+        lambda: aops.adagrad_step_plain(state, grad, value, None))
     log('adagrad_step_plain: {} kernels a step on the card (the eager step '
         'it replaces launched ~17, and decided slot, fill, rate and tail on '
         'the host)'.format('not measured' if plain_kernels is None
                            else plain_kernels))
-    return timed_row(
-        'adagrad_step', lambda: aops.adagrad_step(state, grad, value,
-                                                  log_norm),
-        lambda: aops.adagrad_step_plain(state, grad, value, log_norm),
-        nbytes, nops, err, 1, label='adagrad_step (P = {}, window {})'
-        .format(P, WINDOW))
+    return step_row(state, (grad, value, None), err)
+
+
+# the learning-rate table of a timed step state: every timing starts at
+# iteration WINDOW (the ring full) and stays inside the table
+STEP_TABLE = 4096
+
+
+def step_row(state, args, err):
+    """The step kernel's timed row at `state`'s shape (K runs of P, window
+    10, the ring full, the history kept, the tail summed): `timed_row`
+    (``ms`` by events and ``device_ms`` from a trace, L2 flushed before
+    each launch, as every kernel is timed), ``graph_device_ms`` (as the
+    paths find it: hot in L2 inside a replayed graph), the launch floor
+    (``floor_device_ms`` and ``floor_graph_device_ms``: an empty kernel of
+    the same library launched with the same shape, timed both ways) and
+    ``launch_shape``, the shape `ops.adagrad.launch_shape` chose."""
+    from viabel_tpu_torch.ops import adagrad as aops
+
+    K, P = state.counter.shape[0], state.param.shape[-1]
+    shape = aops.launch_shape(K, P, WINDOW, state.param.dtype)
+    label = 'adagrad_step (K = {}, P = {}, window {})'.format(K, P, WINDOW)
+    log('{}: launch_shape chose {} ({})'.format(label, shape.describe(),
+                                               json.dumps(shape._asdict())))
+    # bytes: grad, the ring (window rows and log-norms), param, the tail
+    # sum, lr, value, log-norm and the counter read; param, the new ring
+    # slot and log-norm, the history row, the tail sum, value, log-norm and
+    # the counter written, each run.  Operations: an exp, 2 multiplies and
+    # an FMA a slot and coordinate, and ~6 a coordinate for the update
+    nbytes = K * (4 * (P * (WINDOW + 3) + WINDOW + 3) + 8
+                  + 4 * (4 * P + 3) + 8)
+    nops = K * P * (5 * WINDOW + 6)
+
+    def step():
+        aops.adagrad_step(state, *args)
+
+    state.counter.fill_(WINDOW)
+    row = timed_row('adagrad_step', step,
+                    lambda: aops.adagrad_step_plain(state, *args), nbytes,
+                    nops, err, 1, label=label)
+    state.counter.fill_(WINDOW)
+    row['graph_device_ms'] = graph_device_ms(step, KERNEL_KEY['adagrad_step'])
+    row['floor_device_ms'] = device_ms(lambda: aops.launch_floor(shape),
+                                       FLOOR_KEY)
+    row['floor_graph_device_ms'] = graph_device_ms(
+        lambda: aops.launch_floor(shape), FLOOR_KEY)
+    if int(state.counter.max()) >= STEP_TABLE:
+        raise AssertionError('{}: the timings ran past the learning-rate '
+                             'table'.format(label))
+    row['launch_shape'] = dict(shape._asdict(), nonportable=shape.nonportable)
+    log('{}: {} ms on the card hot in L2 inside a replayed graph; the '
+        'launch floor (an empty kernel, {}) {} ms L2 flushed, {} ms in a '
+        'graph'.format(label, fmt_ms(row['graph_device_ms']),
+                       shape.describe(), fmt_ms(row['floor_device_ms']),
+                       fmt_ms(row['floor_graph_device_ms'])))
+    return row
+
+
+def fmt_ms(ms):
+    return 'not measured' if ms is None else '{:.4f}'.format(ms)
 
 
 def time_breakdown(vt, model, fam, opt):
@@ -1032,12 +1168,15 @@ def time_breakdown(vt, model, fam, opt):
     return step_kernel_check(vt, model, fam)
 
 
-def profile_busy(fn, attempts=6):
+def profile_busy(fn, attempts=6, key=None, top=0, per=1):
     """``(device busy s, kernels launched, wall s)`` of ``fn()`` under
-    ``torch.profiler``.  A trace now and then comes back with no device
-    records at all (see `device_ms`), so such a trace is taken again, with
-    ``fn()`` run anew after a pause, `attempts` times in all; then busy and
-    kernels are None (not measured).  It times, and checks nothing: the
+    ``torch.profiler``, and with `key` a fourth entry: the mean duration
+    in ms of the kernels whose name holds it (None where the trace has
+    none).  With `top`, the log gets the `top` kernels by card time, each
+    in ms a unit of work (`per` units in ``fn()``).  A trace now and then
+    comes back with no device records at all (see `device_ms`), so such a
+    trace is taken again, with ``fn()`` run anew after a pause, `attempts`
+    times in all; then busy and kernels are None (not measured).  It times, and checks nothing: the
     launches are counted and held by the wrappers' counts elsewhere."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -1052,10 +1191,21 @@ def profile_busy(fn, attempts=6):
                    if e.device_type == torch.autograd.DeviceType.CUDA]
         busy_s = sum(e.self_device_time_total for e in on_card) * 1e-6
         if busy_s > 0:
-            return busy_s, sum(e.count for e in on_card), t_prof
+            for e in sorted(on_card, key=lambda e: -e.self_device_time_total
+                            )[:top]:
+                log('  {:.4f} ms, {} launches a unit: {}'.format(
+                    e.self_device_time_total * 1e-3 / per, e.count / per,
+                    e.key[:90]))
+            out = busy_s, sum(e.count for e in on_card), t_prof
+            if key is None:
+                return out
+            hits = [e for e in on_card if key in e.key]
+            count = sum(e.count for e in hits)
+            return out + ((sum(e.self_device_time_total for e in hits)
+                           / count * 1e-3) if count else None,)
     log('  {} profiler traces held no device time: not measured'
         .format(attempts))
-    return None, None, t_prof
+    return (None, None, t_prof) + (() if key is None else (None,))
 
 
 def busy_text(profiled, n, unit):
@@ -1670,22 +1820,33 @@ def sweep_path(vt):
     return launches
 
 
-def large_d_path(vt):
-    """Phase 15: examples/large_d.py's default (path c), with its launch
-    counts; the fit must meet the example's own criterion."""
+def large_d_setup(vt, d):
+    """examples/large_d.py's model and family at `d`: the N = 4 d
+    conjugate regression (seed 7, noise scale 0.5, prior std 3), a
+    full-rank Gaussian, and q at the prior (float32 on the card)."""
     from viabel_tpu_torch.models import (data_generator_linear,
                                          linear_regression_model)
 
-    data = data_generator_linear(N=4 * LD_D, D=LD_D, alpha=1.0,
+    data = data_generator_linear(N=4 * d, D=d, alpha=1.0,
                                  noise_variance=0.25, rho=0.5, seed=7)
     model = linear_regression_model(data['X'], data['Y'], noise_scale=0.5,
                                     prior_std=3.0)
-    fam = vt.full_rank_gaussian_variational_family(LD_D)
-    init = vt.init_from_moments(fam, np.zeros(LD_D),
-                                9.0 * np.eye(LD_D)).to('cuda', torch.float32)
+    fam = vt.full_rank_gaussian_variational_family(d)
+    init = vt.init_from_moments(fam, np.zeros(d),
+                                9.0 * np.eye(d)).to('cuda', torch.float32)
+    return model, fam, init
+
+
+def large_d_fit(vt, d, n_iters, label):
+    """`validated_vi` of examples/large_d.py at `d` for `n_iters`
+    iterations, with the launch counts it made; the fit must meet the
+    example's own criterion (khat < 0.7, |mean - truth| < 0.05)."""
+    model, fam, init = large_d_setup(vt, d)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     reset_launches()
     t, out = wall(lambda: vt.validated_vi(
-        model, fam, init, LD_ITERS, n_mc_samples=LD_MC,
+        model, fam, init, n_iters, n_mc_samples=LD_MC,
         n_bound_samples=LD_BOUND, learning_rate=0.05,
         learning_rate_end=0.001, generator=card_generator(0),
         device='cuda'))
@@ -1695,21 +1856,72 @@ def large_d_path(vt):
     mean_err = float(np.linalg.norm(mean - model.true_mean))
     cov_err = float(np.linalg.norm(cov - model.true_cov)
                     / np.linalg.norm(model.true_cov))
-    log('large d (d = {}, P = {}, full-rank Gaussian, n_mc {}, {} '
-        'iterations, n_bound {:.0e}, float32): validated_vi {:.3f} s; khat '
-        '{!r}, d2 {!r}, |mean - truth| {!r}, rel cov err {!r} (the JAX '
-        'package at d = 100: khat +0.045, 0.0010); peak memory {:.2f} GB'
-        .format(LD_D, fam.var_param_dim, LD_MC, LD_ITERS, LD_BOUND, t,
-                out['khat'], float(out['bounds']['d2']), mean_err, cov_err,
-                torch.cuda.max_memory_allocated() / 1e9))
+    log('{} (d = {}, P = {}, full-rank Gaussian, n_mc {}, {} iterations, '
+        'n_bound {:.0e}, float32): validated_vi {:.3f} s; khat {!r}, d2 '
+        '{!r}, |mean - truth| {!r}, rel cov err {!r} (the JAX package at '
+        'd = {}: {}); peak memory {:.2f} GB; {}'.format(
+            label, d, fam.var_param_dim, LD_MC, n_iters, LD_BOUND, t,
+            out['khat'], float(out['bounds']['d2']), mean_err, cov_err, d,
+            LD_JAX[d], torch.cuda.max_memory_allocated() / 1e9,
+            card_line()))
     if not (out['khat'] < 0.7 and mean_err < 0.05):
-        raise AssertionError('the large-d fit is not certified (khat {}, '
-                             'mean error {})'.format(out['khat'], mean_err))
-    log('kernel launches on the large-d path: {}'.format(launches))
+        raise AssertionError('the {} fit is not certified (khat {}, mean '
+                             'error {})'.format(label, out['khat'],
+                                                mean_err))
+    log('kernel launches on the {} path: {}'.format(label, launches))
     require_launched(launches, ('lw_partials', 'combine_partials',
-                                'adagrad_step'), 'large-d')
-    require_adagrad_steps(launches, [LD_ITERS], 'large-d')
+                                'adagrad_step'), label)
+    require_adagrad_steps(launches, [n_iters], label)
     return launches
+
+
+def large_d_path(vt):
+    """Phase 15 (a): examples/large_d.py's default (path c), with its
+    launch counts."""
+    return large_d_fit(vt, LD_D, LD_ITERS, 'large-d')
+
+
+def large_d_full_path(vt):
+    """Phase 15 (b): examples/large_d.py --full (d = 300, P = 45450,
+    `LD_FULL_ITERS` iterations), with its launch counts, then
+    `large_d_profile` of its optimizer."""
+    launches = large_d_fit(vt, LD_FULL_D, LD_FULL_ITERS, 'd = 300')
+    torch.cuda.empty_cache()
+    large_d_profile(vt, LD_FULL_D)
+    return launches
+
+
+def large_d_profile(vt, d, n=LD_PROFILE_ITERS, top=8):
+    """`n` iterations of examples/large_d.py's optimizer at `d` through
+    the graph under the profiler: the card's busy share, kernels an
+    iteration, the step kernel's share of an iteration, and the `top`
+    kernels by card time."""
+    from viabel_tpu_torch.optimizers import _adagrad_run, _wrap_objective
+
+    model, fam, init = large_d_setup(vt, d)
+    obj = vt.black_box_klvi(fam, model, LD_MC, presampled=True)
+    draws = obj.make_draws(card_generator(1), n, torch.float32)
+
+    def run():
+        return _adagrad_run(_wrap_objective(obj, None), n, WINDOW, 0.05, 0.1,
+                            0.001, init, draws, keep_history=False)
+
+    run()  # the graph's first capture and the allocator's pools
+    busy, kernels, t_prof, step_ms = profile_busy(
+        run, key=KERNEL_KEY['adagrad_step'], top=top, per=n)
+    label = 'd = {} under the profiler ({} iterations through the graph)' \
+        .format(d, n)
+    if busy is None or step_ms is None:
+        log('{}: wall {:.3f} s, the step\'s share not measured'.format(
+            label, t_prof))
+        return
+    log('{}: wall {:.3f} s ({:.4f} ms an iteration), device busy {:.1f} %, '
+        '{:.1f} kernels an iteration; the step kernel {:.4f} ms an '
+        'iteration, {:.2f} % of an iteration\'s wall and {:.2f} % of its '
+        'busy time ({})'.format(
+            label, t_prof, 1e3 * t_prof / n, 100 * busy / t_prof,
+            kernels / n, step_ms, 100 * step_ms * 1e-3 * n / t_prof,
+            100 * step_ms * 1e-3 * n / busy, card_line()))
 
 
 def batched_card_vs_cpu(vt):
@@ -1772,74 +1984,83 @@ def batched_card_vs_cpu(vt):
         .format(K, n_iters, n_bound, worst))
 
 
+# phase 12's step instances against the plain version: (K, P, window,
+# with a log-norm); the P on each side of the one-block / cluster switch
+# (`ops.adagrad.BLOCK_BYTES`: 512 float32 or 256 float64 columns) is
+# added for each dtype
+STEP_CASES = ([(K, P, WINDOW, True) for K in (1, 4, 16) for P in (4, 5150)]
+              + [(1, 20, WINDOW, True), (2, 5150, WINDOW, True),
+                 (1, 45450, WINDOW, True), (1, 20, 7, True),
+                 (2, 5150, 7, True), (1, 20, WINDOW, False),
+                 (16, 4, WINDOW, False), (1, 5150, WINDOW, False),
+                 (1, 45450, WINDOW, False)])
+# phase 12's timed shapes (phase 5 times K 1, P 20): robust regression's 16
+# starts, the large-d fit (d = 100) and the d = 300 fit
+STEP_TIMED = ((MS_STARTS, 4), (1, 5150), (1, 45450))
+
+
 def batched_step_check(vt):
-    """Phase 12: the step kernel with one block a run against its plain
-    version on the card, K = 1, 4, 16 runs at P = 4 and 5150, each run its
-    own learning-rate table: float64 to 1e-12 relative, float32 to 2e-5
-    relative plus 8 float32 ulps of the largest value compared (the two
-    sum the ring in another order, and a parameter that walks near zero,
-    or a tail sum of O(1) terms that cancel, keeps the error of its O(1)
-    terms); then its times at (K 16, P 4), robust regression's 16 starts,
-    and at (K 1, P 5150), the large-d fit.  Returns the timed instances."""
+    """Phase 12: every instance of the step kernel against its plain
+    version on the card (`STEP_CASES`: one block a run and clusters, K
+    runs each with its own learning-rate table, window 10 and the runtime
+    window 7, with and without a log-norm): float64 to 1e-12 relative,
+    float32 to 2e-5 relative plus 8 float32 ulps of the largest value
+    compared (the two sum the ring in another order, and a parameter that
+    walks near zero, or a tail sum of O(1) terms that cancel, keeps the
+    error of its O(1) terms); each case prints `launch_shape`'s choice.
+    Then `step_row` at `STEP_TIMED`, with no log-norm (the KLVI paths'
+    step).  Returns the timed instances."""
     from viabel_tpu_torch.ops import adagrad as aops
     from viabel_tpu_torch.optimizers import _learning_rates
 
-    n_steps = 2 * WINDOW + 3
     rng = np.random.default_rng(16)
     err = 0.0
     for dtype in (torch.float64, torch.float32):
         tol = 1e-12 if dtype == torch.float64 else 2e-5
-        for K in (1, 4, 16):
-            for P in (4, 5150):
-                lr = torch.stack([
-                    _learning_rates(n_steps, a, a / 10, dtype)
-                    for a in np.geomspace(0.01, 0.1, K)]).cuda()
-                init = torch.as_tensor(rng.normal(size=(K, P)), dtype=dtype,
-                                       device='cuda')
-                states = [aops.new_state(init, lr, WINDOW, 0.1, True)
-                          for _ in range(2)]
-                for _ in range(n_steps):
-                    args = [torch.as_tensor(a, dtype=dtype, device='cuda')
-                            for a in (rng.normal(size=(K, P)),
-                                      rng.normal(size=K),
-                                      3.0 * rng.normal(size=K))]
-                    aops.adagrad_step(states[0], *args)
-                    aops.adagrad_step_plain(states[1], *args)
-                for key in ('param', 'values', 'log_norms', 'params',
-                            'tail_sum', 'grads', 'ring_log_norms',
-                            'counter'):
-                    want = getattr(states[1], key)
-                    atol = (tol * 1e-3 if dtype == torch.float64 else
-                            8 * torch.finfo(dtype).eps
-                            * float(want.abs().max()))
-                    e = check_close(
-                        'batched adagrad_step {} (K {}, P {}, {})'.format(
-                            key, K, P, dtype), getattr(states[0], key),
-                        want, atol, tol)
-                    if dtype == torch.float32:
-                        err = max(err, e)
+        share = aops.BLOCK_BYTES // torch.empty((), dtype=dtype) \
+            .element_size()
+        for K, P, window, with_ln in STEP_CASES + [
+                (3, share, WINDOW, True), (3, share + 1, WINDOW, True)]:
+            n_steps = 2 * window + 3
+            shape = aops.launch_shape(K, P, window, dtype)
+            lr = torch.stack([
+                _learning_rates(n_steps, a, a / 10, dtype)
+                for a in np.geomspace(0.01, 0.1, K)]).cuda()
+            init = torch.as_tensor(rng.normal(size=(K, P)), dtype=dtype,
+                                   device='cuda')
+            states = [aops.new_state(init, lr, window, 0.1, True)
+                      for _ in range(2)]
+            for _ in range(n_steps):
+                args = [torch.as_tensor(a, dtype=dtype, device='cuda')
+                        for a in (rng.normal(size=(K, P)),
+                                  rng.normal(size=K),
+                                  3.0 * rng.normal(size=K))]
+                if not with_ln:
+                    args[2] = None
+                aops.adagrad_step(states[0], *args)
+                aops.adagrad_step_plain(states[1], *args)
+            case = 'K {}, P {}, window {}, {}, {}: {}'.format(
+                K, P, window, 'log-norm' if with_ln else 'no log-norm',
+                dtype, shape.describe())
+            for key in ('param', 'values', 'log_norms', 'params',
+                        'tail_sum', 'grads', 'ring_log_norms', 'counter'):
+                want = getattr(states[1], key)
+                atol = (tol * 1e-3 if dtype == torch.float64 else
+                        8 * torch.finfo(dtype).eps
+                        * float(want.abs().max()))
+                e = check_close('adagrad_step {} ({})'.format(key, case),
+                                getattr(states[0], key), want, atol, tol)
+                if dtype == torch.float32:
+                    err = max(err, e)
     rows = []
-    for K, P in ((MS_STARTS, 4), (1, 5150)):
-        n_time = 4096
+    for K, P in STEP_TIMED:
         state = aops.new_state(
-            torch.zeros(K, P, device='cuda'), torch.full((K, n_time), 0.01,
-                                                         device='cuda'),
-            WINDOW, 0.1, True)._replace(tail_start=0)
-        state.counter.fill_(WINDOW)
-        grad = torch.randn(K, P, device='cuda')
-        value, log_norm = torch.randn(K, device='cuda'), torch.zeros(
-            K, device='cuda')
-        # the bytes and operations of phase 5's step, K times over
-        nbytes = K * (4 * (P * (WINDOW + 3) + WINDOW + 3) + 8
-                      + 4 * (4 * P + 3) + 8)
-        nops = K * P * (5 * WINDOW + 6)
-        row = timed_row(
-            'adagrad_step', lambda: aops.adagrad_step(state, grad, value,
-                                                      log_norm),
-            lambda: aops.adagrad_step_plain(state, grad, value, log_norm),
-            nbytes, nops, err, 1, label='adagrad_step (K = {}, P = {}, '
-            'window {})'.format(K, P, WINDOW))
-        rows.append(dict(K=K, P=P, **row))
+            torch.zeros(K, P, device='cuda'),
+            torch.full((K, STEP_TABLE), 0.01, device='cuda'), WINDOW, 0.1,
+            True)._replace(tail_start=0)
+        args = (torch.randn(K, P, device='cuda'),
+                torch.randn(K, device='cuda'), None)
+        rows.append(dict(K=K, P=P, **step_row(state, args, err)))
     return rows
 
 
@@ -3468,7 +3689,9 @@ def main():
     path_launches = [launches, r_launches, e_launches, multistart_path(vt)]
     phases_done('13')
     path_launches += [sweep_path(vt), large_d_path(vt)]
-    phases_done('14-15')
+    phases_done('14-15 (a)')
+    path_launches.append(large_d_full_path(vt))
+    phases_done('15 (b)')
     batched_card_vs_cpu(vt)
     phases_done('16')
     path_launches.append(cli_path(vt))

@@ -93,6 +93,93 @@ def test_step_plain_matches_jax_step(jx, n_steps, with_log_norms):
                                np.asarray(carry[1].log_norms), rtol=0)
 
 
+@pytest.mark.parametrize('n_steps', [3, WINDOW, WINDOW + 1, 3 * WINDOW + 4])
+def test_step_plain_without_log_norm_matches_zeros_and_jax(jx, n_steps):
+    """``log_norm=None`` (an objective without one, as the adagrad drivers
+    now pass it) against the same steps fed a log-norm of zeros, bit for
+    bit in every field of the state, and against the JAX package's
+    `_make_adagrad_step` fed zero log-norms."""
+    _, jnp, _, jopt, _ = jx
+    n_iters, P = 40, 6
+    grads, values, zeros = _step_inputs(n_steps, False, P)
+
+    def fake_obj(param, k):
+        return values[k], jnp.asarray(grads)[k], zeros[k]
+
+    jstep = jopt._make_adagrad_step(fake_obj, n_iters, WINDOW, LR, EPS,
+                                    LR_END, jnp.float64)
+    carry = (jnp.zeros(P), jopt._WindowState(jnp.zeros((WINDOW, P)),
+                                             jnp.zeros(WINDOW)))
+    lr = _learning_rates(n_iters, LR, LR_END, torch.float64)
+    states = [aops.new_state(torch.zeros(P, dtype=torch.float64), lr, WINDOW,
+                             EPS, True) for _ in range(2)]
+    for i in range(n_steps):
+        carry, (_, _, param) = jstep(carry, (i, i))
+        grad = torch.as_tensor(grads[i])
+        value = torch.tensor(values[i], dtype=torch.float64)
+        aops.adagrad_step_plain(states[0], grad, value, None)
+        aops.adagrad_step_plain(states[1], grad, value,
+                                torch.zeros((), dtype=torch.float64))
+        np.testing.assert_allclose(states[0].param.numpy(), np.asarray(param),
+                                   rtol=1e-12, atol=1e-15)
+    for key in ('param', 'grads', 'ring_log_norms', 'counter', 'values',
+                'log_norms', 'params', 'tail_sum'):
+        got, want = getattr(states[0], key), getattr(states[1], key)
+        if key in ('values', 'log_norms', 'params'):
+            got, want = got[:n_steps], want[:n_steps]
+        assert torch.equal(got, want), key
+    np.testing.assert_array_equal(states[0].log_norms[:n_steps].numpy(), 0.0)
+    np.testing.assert_allclose(states[0].grads.numpy(),
+                               np.asarray(carry[1].grads), rtol=0)
+
+
+def _covered_columns(shape, K, P):
+    """How often the kernel's column mapping under `shape` (the
+    `LaunchShape` docstring's rule) reaches each column of each run."""
+    blocks = np.arange(shape.grid)
+    runs, ranks = blocks // shape.cluster, blocks % shape.cluster
+    first = ranks[:, None] * shape.threads + np.arange(shape.threads)[None]
+    seen = np.zeros((K, P), np.int64)
+    stride = shape.cluster * shape.threads
+    for j in range(-(-P // stride)):
+        cols = first + j * stride
+        ok = cols < P
+        np.add.at(seen, (np.broadcast_to(runs[:, None], cols.shape)[ok],
+                         cols[ok]), 1)
+    return seen
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('K', [1, 2, 16])
+def test_launch_shape_covers_every_column_once(K, dtype):
+    """`launch_shape` over P from 1 to the d = 300 family's 45450 and
+    windows 7, 10 and 40: every column of every run is one thread's, once;
+    blocks hold whole warps of at most 512 threads; one block a run up to
+    a block's share of a ring row and a cluster of 2-16 blocks above it
+    (more than 8 only as non-portable); the unrolled instance exactly at
+    window 10."""
+    share = aops.BLOCK_BYTES // torch.empty((), dtype=dtype).element_size()
+    for P in (1, 4, 20, 31, 32, 33, share - 1, share, share + 1, 1000,
+              4 * share + 1, 5150, 45450):
+        for window in (7, 10, 40):
+            shape = aops.launch_shape(K, P, window, dtype)
+            assert shape.unrolled == (window == 10)
+            assert shape.threads % 32 == 0 and 32 <= shape.threads <= 512
+            assert shape.grid == K * shape.cluster
+            if P <= share:
+                assert shape.cluster == 1 and shape.threads >= P
+            else:
+                assert shape.threads == share and 2 <= shape.cluster <= 16
+                assert shape.cluster & (shape.cluster - 1) == 0
+                assert shape.nonportable == (shape.cluster > 8)
+                assert shape.cluster == min(16, 1 << (-(-P // share) - 1)
+                                            .bit_length())
+            seen = _covered_columns(shape, K, P)
+            assert (seen == 1).all(), (K, P, window, shape)
+    assert aops.launch_shape(1, 45450, 10, dtype).cluster == 16
+    assert aops.launch_shape(1, share + 1, 10, dtype).cluster == 2
+
+
 def test_step_adds_the_tail_from_its_start_and_checks_its_inputs():
     P, n_iters = 3, 8
     state = aops.new_state(torch.zeros(P, dtype=torch.float64),
@@ -172,6 +259,42 @@ def test_adagrad_run_matches_jax(jx, method, n_iters, keep_history):
         assert params is None
     if method == 'KLVI':
         np.testing.assert_array_equal(log_norms.numpy(), 0.0)
+
+
+@pytest.mark.parametrize('n_iters', [7, 53])
+def test_batched_klvi_runs_match_jax(jx, n_iters):
+    """`_adagrad_runs` of a KLVI objective (no log-norm: the batched body
+    passes None to the step) against the JAX package's `_adagrad_run` of
+    each run on its draws, rate and init, float64, rtol 1e-9; the
+    log-norm history is zeros."""
+    jax, jnp, _, jopt, _ = jx
+    n_mc, K = 12, 3
+    draws = np.random.default_rng(30 + n_iters).standard_t(
+        40, size=(K, n_iters, n_mc, 10))
+    inits = 0.1 * np.random.default_rng(31).normal(size=(K, 20))
+    rates = [(0.05, 0.005), (0.02, None), (0.1, 0.01)]
+    _, tobj = _objectives(jx, 'KLVI', n_mc)
+    lr = torch.stack([_learning_rates(n_iters, a, b, torch.float64)
+                      for a, b in rates])
+    values, log_norms, params, tail = optimizers._adagrad_runs(
+        tobj, None, n_iters, WINDOW, lr, EPS, torch.as_tensor(inits),
+        torch.as_tensor(draws), keep_history=True)
+    np.testing.assert_array_equal(log_norms.numpy(), 0.0)
+    for k, (a, b) in enumerate(rates):
+        # an objective a run: the JAX run is compiled once an objective
+        jobj = _objectives(jx, 'KLVI', n_mc)[0]
+        jobj.make_draws = lambda key, n, dtype, k=k: jnp.asarray(draws[k],
+                                                                 dtype)
+        want = jopt._adagrad_run(jopt._wrap_objective(jobj, None), n_iters,
+                                 WINDOW, a, EPS, b, jnp.asarray(inits[k]),
+                                 jax.random.PRNGKey(0), unroll=1,
+                                 keep_history=True)
+        np.testing.assert_allclose(values[k].numpy(), np.asarray(want[0]),
+                                   rtol=1e-9)
+        np.testing.assert_allclose(params[k].numpy(), np.asarray(want[2]),
+                                   rtol=1e-9, atol=1e-12)
+        np.testing.assert_allclose(tail[k].numpy(), np.asarray(want[-1]),
+                                   rtol=1e-9, atol=1e-12)
 
 
 def test_adagrad_run_drivers_are_chosen_by_objective_and_device():
@@ -386,6 +509,137 @@ def test_batched_graph_run_matches_eager_run(cuda, method):
         outs[driver] = optimizers._adagrad_runs(
             obj, None, n_iters, WINDOW, lr, EPS, inits, draws,
             keep_history=True, driver=driver)
+        assert aops.launches['adagrad_step'] == n_iters
+    for got, want in zip(outs['graph'], outs['eager']):
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=1e-10, atol=1e-300)
+
+
+def _kernel_against_plain(cuda, dtype, K, P, window, with_log_norms=True,
+                          seed=0):
+    """Two copies of a K-run state, one stepped by the kernel and one by
+    its plain version on the same inputs, past the ring's wrap; returns
+    both."""
+    n_steps = 2 * window + 3
+    rng = np.random.default_rng(seed)
+    lr = torch.stack([_learning_rates(n_steps, a, a / 10, dtype)
+                      for a in np.geomspace(0.01, 0.1, K)]).to(cuda)
+    init = torch.as_tensor(rng.normal(size=(K, P)), dtype=dtype, device=cuda)
+    states = [aops.new_state(init, lr, window, EPS, True) for _ in range(2)]
+    for _ in range(n_steps):
+        grad, value, log_norm = [
+            torch.as_tensor(a, dtype=dtype, device=cuda) for a in (
+                rng.normal(size=(K, P)), rng.normal(size=K),
+                3.0 * rng.normal(size=K))]
+        if not with_log_norms:
+            log_norm = None
+        aops.adagrad_step(states[0], grad, value, log_norm)
+        aops.adagrad_step_plain(states[1], grad, value, log_norm)
+    return states
+
+
+def _assert_states_close(states, dtype):
+    """The kernel's state against the plain version's: float64 to 1e-12
+    relative and 1e-15 absolute, float32 to 2e-5 relative plus 8 ulps of
+    the largest value (chip_smoke.py's rule: the two sum the ring in
+    another order, and a parameter or tail sum near zero keeps the error
+    of its O(1) terms)."""
+    rtol = 1e-12 if dtype == torch.float64 else 2e-5
+    for key in ('param', 'values', 'log_norms', 'params', 'tail_sum',
+                'grads', 'ring_log_norms', 'counter'):
+        want = getattr(states[1], key).cpu().double().numpy()
+        atol = (1e-15 if dtype == torch.float64 else
+                8 * torch.finfo(dtype).eps * float(np.abs(want).max()))
+        np.testing.assert_allclose(
+            getattr(states[0], key).cpu().double().numpy(), want, rtol=rtol,
+            atol=atol, err_msg=key)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
+@pytest.mark.parametrize('K,P,window', [
+    (1, 45450, WINDOW), (2, 5150, WINDOW), (1, 20, 7), (2, 5150, 7),
+    (3, 'share', WINDOW), (3, 'share + 1', WINDOW)])
+def test_step_kernel_instances_match_plain(cuda, dtype, K, P, window):
+    """Every instance of `launch_shape` against the plain version: the
+    d = 300 family's P = 45450 and two clusters at P = 5150 (two runs),
+    the runtime window (7) on one block and on clusters, and the P on each
+    side of the one-block / cluster switch."""
+    share = aops.BLOCK_BYTES // torch.empty((), dtype=dtype).element_size()
+    P = {'share': share, 'share + 1': share + 1}.get(P, P)
+    shape = aops.launch_shape(K, P, window, dtype)
+    assert shape.unrolled == (window == WINDOW)
+    assert (shape.cluster > 1) == (P > share)
+    _assert_states_close(_kernel_against_plain(cuda, dtype, K, P, window),
+                         dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
+@pytest.mark.parametrize('K,P', [(1, 20), (16, 4), (1, 5150)])
+def test_step_kernel_without_log_norm(cuda, dtype, K, P):
+    """``log_norm=None`` launches with no log-norm and matches the plain
+    version, and equals the kernel fed zeros bit for bit."""
+    _assert_states_close(_kernel_against_plain(cuda, dtype, K, P, WINDOW,
+                                               False), dtype)
+    n_steps = 2 * WINDOW + 3
+    rng = np.random.default_rng(P)
+    lr = torch.full((K, n_steps), 0.05, dtype=dtype, device=cuda)
+    init = torch.as_tensor(rng.normal(size=(K, P)), dtype=dtype, device=cuda)
+    states = [aops.new_state(init, lr, WINDOW, EPS, True) for _ in range(2)]
+    for _ in range(n_steps):
+        grad = torch.as_tensor(rng.normal(size=(K, P)), dtype=dtype,
+                               device=cuda)
+        value = torch.as_tensor(rng.normal(size=K), dtype=dtype, device=cuda)
+        aops.adagrad_step(states[0], grad, value, None)
+        aops.adagrad_step(states[1], grad, value, torch.zeros_like(value))
+    for key in ('param', 'values', 'log_norms', 'params', 'tail_sum',
+                'grads', 'ring_log_norms', 'counter'):
+        assert torch.equal(getattr(states[0], key), getattr(states[1], key))
+
+
+@pytest.mark.cuda
+def test_refused_step_launch_raises(cuda, monkeypatch):
+    """A launch the library refuses (here a cluster of 32 blocks) raises;
+    nothing falls back to another instance or to the plain version."""
+    state = aops.new_state(torch.zeros(1, 5150, device=cuda),
+                           torch.full((1, 4), 0.1, device=cuda), WINDOW, EPS,
+                           False)
+    monkeypatch.setattr(aops, 'launch_shape',
+                        lambda *a: aops.LaunchShape(True, 512, 32, 32))
+    before = int(state.counter[0])
+    with pytest.raises(RuntimeError, match='launch'):
+        aops.adagrad_step(state, torch.zeros(1, 5150, device=cuda),
+                          torch.zeros(1, device=cuda), None)
+    assert int(state.counter[0]) == before
+
+
+@pytest.mark.cuda
+def test_cluster_graph_run_matches_eager_run(cuda):
+    """A run whose step is a cluster instance (a full-rank Gaussian at
+    d = 40, P = 860: 4 blocks a run in float64) replayed from a graph
+    against the eager loop, float64, 1e-10 relative."""
+    from viabel_tpu_torch.models import (data_generator_linear,
+                                         linear_regression_model)
+    d, n_iters, n_mc = 40, WINDOW + 15, 20
+    data = data_generator_linear(N=4 * d, D=d, alpha=1.0,
+                                 noise_variance=0.25, rho=0.5, seed=7)
+    model = linear_regression_model(data['X'], data['Y'], noise_scale=0.5,
+                                    prior_std=3.0)
+    fam = pt.full_rank_gaussian_variational_family(d)
+    assert aops.launch_shape(1, fam.var_param_dim, WINDOW,
+                             torch.float64).cluster == 4
+    obj = pt.black_box_klvi(fam, model, n_mc, presampled=True)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    draws = obj.make_draws(g, n_iters, torch.float64)
+    init = pt.init_from_moments(fam, np.zeros(d), 9.0 * np.eye(d)).to(
+        cuda, torch.float64)
+    outs = {}
+    for driver in ('graph', 'eager'):
+        aops.reset_launches()
+        outs[driver] = _adagrad_run(_wrap_objective(obj, None), n_iters,
+                                    WINDOW, LR, EPS, LR_END, init, draws,
+                                    keep_history=True, driver=driver)
         assert aops.launches['adagrad_step'] == n_iters
     for got, want in zip(outs['graph'], outs['eager']):
         np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),

@@ -207,6 +207,30 @@ def test_cholesky_layout_is_numpy_tril_order():
                                       vp[2 * d:])
 
 
+@pytest.mark.parametrize('d', [1, 4, 30])
+def test_unpack_chol_gradient_is_each_entry_once(d):
+    """The gradient of ``sum(W * L)`` through `_unpack_chol` is W at each
+    strict-lower entry and ``W_ii exp(.)`` at each log-diagonal entry, and
+    0 for mu, exactly; under `torch.func.vmap` each row of a batch gets its
+    own, as alone (the batched runs' and chains' gradients)."""
+    rng = np.random.default_rng(d)
+    vp = torch.as_tensor(rng.normal(size=(3, d * (d + 3) // 2)))
+    W = torch.as_tensor(rng.normal(size=(d, d)))
+    rows, cols = np.tril_indices(d, k=-1)
+
+    def f(p):
+        return torch.sum(W * t_unpack(p, d)[1])
+
+    grads = [torch.func.grad(f)(p) for p in vp]
+    for p, g in zip(vp, grads):
+        assert torch.equal(g[:d], torch.zeros(d, dtype=torch.float64))
+        assert torch.equal(g[d:2 * d], torch.diagonal(W) * torch.exp(
+            p[d:2 * d]))
+        assert torch.equal(g[2 * d:], W[rows, cols])
+    assert torch.equal(torch.func.vmap(torch.func.grad(f))(vp),
+                       torch.stack(grads))
+
+
 @pytest.mark.parametrize('make', [
     lambda m: m.full_rank_gaussian_variational_family(3),
     lambda m: m.t_variational_family(3, 10)])

@@ -10,13 +10,17 @@ library ``csrc/adagrad.cu`` of every ROOT is built first, all at once;
 then each ROOT, in its own process, in the order given and again in
 reverse (parent, change, change, parent for two), times its step kernel
 in float32 with the ring full, the history kept and the tail summed (the
-most a step does): the kernel's own duration on the card
-(``chip_smoke.device_ms``, mean of 10 launches, L2 flushed before each by
-writing 256 MB), for one run at P = 20 (eight-schools' mean-field
-parameter) and P = 5150 (a full-rank d = 100 family), and, where the
-checkout's step takes a batch of runs, 16 runs at P = 4 (robust
-regression's mean-field starts).  Prints the card's name and power
-limit.  Needs a CUDA device; imports nothing of JAX.
+most a step does), two ways: the kernel's own duration on the card with
+L2 flushed before each launch by writing 256 MB (``chip_smoke.device_ms``,
+mean of 10 launches), and as the optimizer finds it, hot in L2 inside a
+replayed CUDA graph of 20 steps (``chip_smoke.graph_device_ms``, 10
+replays).  The shapes: one run at P = 20 (eight-schools' mean-field
+parameter), P = 5150 and P = 45450 (full-rank d = 100 and d = 300
+families), and, where the checkout's step takes a batch of runs, 16 runs
+at P = 4 (robust regression's mean-field starts).  Where the checkout
+has it, the empty kernel of its step library (``ops.adagrad.launch_floor``)
+is timed the same two ways at each shape.  Prints the card's name and
+power limit.  Needs a CUDA device; imports nothing of JAX.
 """
 import importlib.util
 import json
@@ -25,7 +29,7 @@ import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WINDOW, N_TABLE = 10, 4096
-SHAPES = ((1, 20), (1, 5150), (16, 4))  # (runs K, parameters P)
+SHAPES = ((1, 20), (1, 5150), (1, 45450), (16, 4))  # (runs K, params P)
 
 
 def child(root, build_only):
@@ -61,9 +65,26 @@ def child(root, build_only):
         except (TypeError, ValueError):  # a step that takes one run only
             out['K {} P {}'.format(K, P)] = None
             continue
-        out['K {} P {}'.format(K, P)] = smoke.device_ms(
-            lambda: aops.adagrad_step(state, grad, value, log_norm),
-            'adagrad_step_kernel')
+
+        def step():
+            aops.adagrad_step(state, grad, value, log_norm)
+
+        times = {}
+        state.counter.fill_(WINDOW)
+        times['L2 flushed'] = smoke.device_ms(step, 'adagrad_step_kernel')
+        state.counter.fill_(WINDOW)
+        times['in a graph'] = smoke.graph_device_ms(step,
+                                                    'adagrad_step_kernel')
+        if hasattr(aops, 'launch_floor'):
+            shape = aops.launch_shape(K, P, WINDOW, torch.float32)
+            times['shape'] = shape.describe()
+            times['floor, L2 flushed'] = smoke.device_ms(
+                lambda: aops.launch_floor(shape), smoke.FLOOR_KEY)
+            times['floor, in a graph'] = smoke.graph_device_ms(
+                lambda: aops.launch_floor(shape), smoke.FLOOR_KEY)
+        if int(state.counter.max()) >= N_TABLE:
+            raise AssertionError('the timings ran past the table')
+        out['K {} P {}'.format(K, P)] = times
     print(json.dumps({'root': root, 'device_ms': out}), flush=True)
     return 0
 

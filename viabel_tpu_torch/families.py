@@ -195,30 +195,31 @@ def mean_field_t_variational_family(dim, df):
 
 
 @lru_cache(maxsize=None)
-def _chol_gather_index(dim, device):
-    """For each entry of the row-major (d, d) factor, the position in
-    ``[strict lower L, diag L, 0]`` that holds it: ``torch.tril_indices(d,
-    d, -1)`` walks the strict lower triangle in the order of
-    ``np.tril_indices(d, k=-1)``."""
-    n_off = dim * (dim - 1) // 2
-    index = torch.full((dim, dim), n_off + dim, dtype=torch.int64)
+def _chol_scatter_index(dim, device):
+    """The row-major positions in the (d, d) factor of ``[strict lower L,
+    diag L]``: ``torch.tril_indices(d, d, -1)`` walks the strict lower
+    triangle in the order of ``np.tril_indices(d, k=-1)``, then the
+    diagonal."""
     rows, cols = torch.tril_indices(dim, dim, -1)
-    index[rows, cols] = torch.arange(n_off)
-    index[torch.arange(dim), torch.arange(dim)] = n_off + torch.arange(dim)
-    return index.reshape(-1).to(device)
+    return torch.cat([rows * dim + cols,
+                      torch.arange(dim) * (dim + 1)]).to(device)
 
 
 def _unpack_chol(var_param, dim):
     """Unpack ``[mu, log diag L, strict lower L]`` into (mu, L)
-    (viabel_tpu/families.py:248-258).  L is one gather from the parameter
-    vector, so it builds alike under autograd, `torch.func.vmap` and a
-    CUDA graph capture."""
+    (viabel_tpu/families.py:248-258).  L is one scatter of the entries
+    into zeros, so it builds alike under autograd, `torch.func.vmap` and a
+    CUDA graph capture, and its gradient is one gather.  (A gather of L
+    from ``[entries, 0]`` read the one zero at each of the d (d - 1) / 2
+    entries above the diagonal, and its backward, an accumulating
+    index_put, summed those into that one slot one after another: 3.9 ms
+    of a 4.3 ms iteration at d = 300 on an H100, PERF.md.)"""
     mu = var_param[:dim]
     entries = torch.cat([var_param[2 * dim:],
-                         torch.exp(var_param[dim:2 * dim]),
-                         torch.zeros_like(var_param[:1])])
-    index = _chol_gather_index(dim, var_param.device)
-    return mu, entries[index].reshape(dim, dim)
+                         torch.exp(var_param[dim:2 * dim])])
+    index = _chol_scatter_index(dim, var_param.device)
+    L = entries.new_zeros(dim * dim).scatter(0, index, entries)
+    return mu, L.reshape(dim, dim)
 
 
 def _chol_param_dim(dim):

@@ -10,7 +10,16 @@ JAX package's vmapped scan of `validated_vi_multistart` and
 `validated_vi_sweep`).  The iteration it runs is the state's int64
 ``counter`` (one slot a run), which the step advances, so the same launch
 serves every iteration and `optimizers._adagrad_run` can replay it from a
-CUDA graph (`replay`).
+CUDA graph (`replay`).  An objective without a log-norm passes
+``log_norm=None``, and the step writes 0 into the ring and the history,
+so no tensor of zeros is made at every iteration.
+
+The shape of each launch is `launch_shape` of (K, P, window, dtype): one
+block a run, a thread a column, up to one block's share of a ring row
+(`BLOCK_BYTES`), else a thread-block cluster of up to 16 blocks a run;
+the window-10 instance (every path's default) holds the ring column in
+registers, any other window takes the runtime-window instance.  A launch
+the card refuses raises.
 
 Each wrapper takes the plain version only for a tensor on the CPU; for a
 CUDA tensor it launches the kernel (building it on first use) or raises.
@@ -30,8 +39,17 @@ from . import _build
 from .lw_stats import check_tensor
 
 __all__ = ['AdagradState', 'new_state', 'restore_state', 'host_state',
-           'adagrad_step', 'adagrad_step_plain', 'replay', 'launches',
+           'LaunchShape', 'launch_shape', 'adagrad_step',
+           'adagrad_step_plain', 'launch_floor', 'replay', 'launches',
            'replayed', 'reset_launches']
+
+# the window the kernel unrolls (optimizers.adagrad_optimize's default and
+# every path's); any other window takes the runtime-window instance
+UNROLLED_WINDOW = 10
+# a block's share of a ring row: 512 float32 or 256 float64 columns, a
+# thread each; a run with more columns is a cluster of such blocks
+BLOCK_BYTES = 2048
+MAX_CLUSTER, PORTABLE_CLUSTER = 16, 8
 
 launches = {'adagrad_step': 0}
 replayed = {'adagrad_step': 0}  # the part of `launches` that replays ran
@@ -137,11 +155,55 @@ def _runs(state):
         if getattr(state, name) is not None})
 
 
+class LaunchShape(NamedTuple):
+    """How `adagrad_step` launches for K runs of P columns: ``threads`` a
+    block, ``cluster`` blocks a run (1: one block a run), ``grid`` = K *
+    ``cluster`` blocks.  Block ``b`` serves run ``b // cluster`` as rank
+    ``b % cluster``; its thread t takes columns ``rank * threads + t``,
+    then every ``cluster * threads`` more.  ``unrolled``: the window-10
+    instance."""
+    unrolled: bool
+    threads: int
+    cluster: int
+    grid: int
+
+    @property
+    def nonportable(self):
+        """A cluster above the portable 8 blocks, which the kernel is
+        allowed first."""
+        return self.cluster > PORTABLE_CLUSTER
+
+    def describe(self):
+        return '{} window, {}, {} threads a block'.format(
+            'unrolled' if self.unrolled else 'runtime',
+            'one block a run' if self.cluster == 1 else
+            'a cluster of {} blocks a run{}'.format(
+                self.cluster, ' (non-portable)' if self.nonportable else ''),
+            self.threads)
+
+
+def launch_shape(K, P, window, dtype):
+    """The launch of the step for K runs of P columns with `window` in
+    `dtype`: one block a run while P fits one block's share of a ring row
+    (`BLOCK_BYTES`), threads rounded up to a warp; else blocks of that
+    share, as many a run as cover P, rounded up to a power of two and at
+    most `MAX_CLUSTER`."""
+    share = BLOCK_BYTES // torch.empty((), dtype=dtype).element_size()
+    if P <= share:
+        threads, cluster = -(-P // 32) * 32, 1
+    else:
+        threads = share
+        cluster = min(MAX_CLUSTER, 1 << (-(-P // share) - 1).bit_length())
+    return LaunchShape(window == UNROLLED_WINDOW, threads, cluster,
+                       K * cluster)
+
+
 _ptr = ctypes.c_void_p
+_int = ctypes.c_int
 _SIGNATURES = {
-    'adagrad_step': [_ptr] * 12 + [ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                                   ctypes.c_longlong, ctypes.c_longlong,
-                                   ctypes.c_double],
+    'adagrad_step': [_ptr] * 12 + [_int, _int, _int, ctypes.c_longlong,
+                                   ctypes.c_longlong, ctypes.c_double, _int,
+                                   _int, _int],
 }
 _SUFFIX = {torch.float32: 'f32', torch.float64: 'f64'}
 
@@ -155,6 +217,8 @@ def _lib():
             fn = getattr(lib, '{}_{}'.format(name, suffix))
             fn.argtypes = argtypes + [_ptr]  # + the stream
             fn.restype = ctypes.c_int
+    lib.launch_floor.argtypes = [_int, _int, _int, _ptr]
+    lib.launch_floor.restype = ctypes.c_int
     return lib
 
 
@@ -173,6 +237,8 @@ def _check(state, grad, value, log_norm):
             ('tail_sum', runs.tail_sum, (K, P)),
             ('grad', grad, batch + (P,)), ('value', value, batch),
             ('log_norm', log_norm, batch)):
+        if t is None and name == 'log_norm':
+            continue
         check_tensor(name, t, state.param.dtype, state.param.device, shape)
     if state.params is not None:
         check_tensor('params', runs.params, state.param.dtype,
@@ -189,7 +255,9 @@ def adagrad_step_plain(state, grad, value, log_norm):
     device counters (no host decision, so it too could be captured): for
     each run, the masked ring of the JAX package's ``_window_accum``, the
     update and the outputs of iteration ``counter``, which it then
-    advances."""
+    advances.  ``log_norm=None`` is a log-norm of 0."""
+    if log_norm is None:
+        log_norm = torch.zeros_like(value)
     s = _runs(state)
     K, window, P = s.grads.shape
     i = s.counter                                          # (K,)
@@ -218,9 +286,9 @@ def adagrad_step_plain(state, grad, value, log_norm):
 
 def adagrad_step(state, grad, value, log_norm):
     """One windowed-adagrad iteration of every run of `state`, in place:
-    the kernel on the card (one block a run), its plain version on the
-    CPU.  `grad` (P,) or (K, P), `value` and `log_norm` () or (K,) are in
-    the parameter's dtype and device."""
+    the kernel on the card (`launch_shape`'s launch), its plain version on
+    the CPU.  `grad` (P,) or (K, P), `value` and `log_norm` () or (K,) are
+    in the parameter's dtype and device; `log_norm` None is 0."""
     _check(state, grad, value, log_norm)
     if state.param.device.type == 'cpu':
         return adagrad_step_plain(state, grad, value, log_norm)
@@ -228,22 +296,39 @@ def adagrad_step(state, grad, value, log_norm):
     fn = getattr(_lib(), 'adagrad_step_{}'.format(_SUFFIX[dtype]))
     params = state.params.data_ptr() if state.params is not None else None
     K, P = state.counter.shape[0], state.param.shape[-1]
+    window = state.grads.shape[-2]
+    shape = launch_shape(K, P, window, dtype)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device)
-        rc = fn(grad.data_ptr(), value.data_ptr(), log_norm.data_ptr(),
+        rc = fn(grad.data_ptr(), value.data_ptr(),
+                None if log_norm is None else log_norm.data_ptr(),
                 state.lr.data_ptr(), state.counter.data_ptr(),
                 state.param.data_ptr(), state.grads.data_ptr(),
                 state.ring_log_norms.data_ptr(), state.values.data_ptr(),
                 state.log_norms.data_ptr(), params,
-                state.tail_sum.data_ptr(), K, P, state.grads.shape[-2],
+                state.tail_sum.data_ptr(), K, P, window,
                 state.values.shape[-1], state.tail_start, state.epsilon,
+                int(shape.unrolled), shape.threads, shape.cluster,
                 stream.cuda_stream)
         capturing = torch.cuda.is_current_stream_capturing()
     if rc != 0:
-        raise RuntimeError('adagrad_step launch failed: CUDA error {}'
-                           .format(rc))
+        raise RuntimeError('adagrad_step launch ({}) failed: CUDA error {}'
+                           .format(shape.describe(), rc))
     if not capturing:
         launches['adagrad_step'] += 1
+
+
+def launch_floor(shape, device='cuda'):
+    """Launch an empty kernel of the step's library on `device`'s current
+    stream as `shape` (a `LaunchShape`) would launch the step: the card's
+    floor under a launch of that size.  It is no step and counts none."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device)
+        rc = _lib().launch_floor(shape.grid, shape.threads, shape.cluster,
+                                 stream.cuda_stream)
+    if rc != 0:
+        raise RuntimeError('launch_floor ({}) failed: CUDA error {}'.format(
+            shape.describe(), rc))
 
 
 def replay(graph, steps):

@@ -10,7 +10,7 @@ the device; on the card a presampled objective's run is that body captured
 in a CUDA graph and replayed, so no iteration waits for the host.  A batch
 of K runs (`_adagrad_runs`, the batched pipelines' optimizer) is the same
 body with a leading run axis: ``torch.func.vmap`` of the objective's
-gradient and one launch of the step kernel, one block a run.  The IA
+gradient and one launch of the step kernel for every run.  The IA
 optimizers' chain step runs eagerly: a Python loop over iterations, the
 learning rate a host float, nothing waiting for the device.  Their chains
 are a batch dimension: one batched step an iteration through
@@ -76,8 +76,10 @@ def learning_rate_schedule(i, n_iters, learning_rate, learning_rate_end=None):
 
 
 def _wrap_objective(objective_and_grad, has_log_norm):
-    """Normalize to ``(value, grad, log_norm)``; objectives without a
-    log-norm output get a zero one (viabel_tpu/optimizers.py:125-139)."""
+    """Normalize to ``(value, grad, log_norm)``; an objective without a
+    log-norm output gets None, which the step kernel takes as the JAX
+    package's zero log-norm (viabel_tpu/optimizers.py:125-139) without a
+    tensor of zeros an iteration."""
     if has_log_norm is None:
         has_log_norm = getattr(objective_and_grad, 'has_log_norm', False)
     if has_log_norm:
@@ -87,7 +89,7 @@ def _wrap_objective(objective_and_grad, has_log_norm):
     else:
         def obj(var_param, rng_or_draws):
             value, grad = objective_and_grad(var_param, rng_or_draws)[:2]
-            return value, grad, torch.zeros_like(value)
+            return value, grad, None
     obj.presampled = getattr(objective_and_grad, 'presampled', False)
     obj.host_callback = getattr(objective_and_grad, 'host_callback', False)
     return obj
@@ -166,7 +168,8 @@ def _adagrad_iteration(obj, state, source, i):
     eagerly and under capture."""
     value, grad, log_norm = obj(state.param, _draws_of(obj, state, source, i))
     dtype = state.param.dtype
-    adagrad_step(state, grad.to(dtype), value.to(dtype), log_norm.to(dtype))
+    adagrad_step(state, grad.to(dtype), value.to(dtype),
+                 None if log_norm is None else log_norm.to(dtype))
 
 
 def _adagrad_eager(obj, state, source, start, iters, report=None):
@@ -320,8 +323,8 @@ def _adagrad_runs(objective_and_grad, has_log_norm, n_iters, window,
     of each run and iteration (`_learning_rates` of each run's schedule),
     and `draws` the ``(K, n_iters, n_mc, ...)`` presampled draws (a dict
     of such blocks for dict draws) of a presampled objective.  Each
-    iteration is `_batched_step`'s vmapped value and gradient of every run
-    followed by one launch of the step kernel (one block a run), the body
+    iteration is `_batched_objective`'s vmapped value and gradient of every
+    run followed by one launch of the step kernel for every run, the body
     that `_adagrad_run` drives: a replayed CUDA graph on the card, eagerly
     on the CPU.  An objective that samples from a generator cannot be
     vmapped: `draws` is then a list of K generators and the runs go one
@@ -337,7 +340,7 @@ def _adagrad_runs(objective_and_grad, has_log_norm, n_iters, window,
                 for init, lr, generator in zip(inits, lr_tables, draws)]
         return tuple(None if parts[0] is None else torch.stack(parts)
                      for parts in zip(*outs))
-    step = _batched_step(objective_and_grad, has_log_norm)
+    step = _batched_objective(objective_and_grad, has_log_norm)
     state = new_adagrad_state(inits, lr_tables, window, epsilon,
                               keep_history)
     return _drive(step, state, draws, n_iters, window, driver,
@@ -402,16 +405,18 @@ def _perturbed_inits(init_param, n_optimisers, scale, noise):
     return init_param[None, :] + noise * mult[:, None]
 
 
-def _batched_step(objective_and_grad, has_log_norm):
+def _batched_objective(objective_and_grad, has_log_norm):
     """``step(params (C, P), draws (C, n_mc, ...)) -> (values (C,), grads
-    (C, P), log_norms (C,))``: the objective's value and gradient for every
-    chain or run in one batched call, the counterpart of the JAX package's
-    vmapped scan.  A KLVI-form objective is ``vmap`` of ``grad_and_value``
-    of its pure ``objective``; a CHIVI-form one (it carries
-    ``compute_log_weights``) is ``vmap`` of the objective itself, whose
-    gradient is a `torch.func.vjp` of the log-weights with the stopped
-    cotangent (viabel_tpu/objectives.py:207-216), and its log-norm output
-    is kept when `has_log_norm` (default: the objective's own flag)."""
+    (C, P), log_norms (C,) or None)``: the objective's value and gradient
+    for every chain or run in one batched call, the counterpart of the JAX
+    package's vmapped scan.  A KLVI-form objective is ``vmap`` of
+    ``grad_and_value`` of its pure ``objective``; a CHIVI-form one (it
+    carries ``compute_log_weights``) is ``vmap`` of the objective itself,
+    whose gradient is a `torch.func.vjp` of the log-weights with the
+    stopped cotangent (viabel_tpu/objectives.py:207-216), and its log-norm
+    output is kept when `has_log_norm` (default: the objective's own
+    flag), else None (the batched adagrad body: the step kernel takes
+    None as 0)."""
     if has_log_norm is None:
         has_log_norm = getattr(objective_and_grad, 'has_log_norm', False)
     if getattr(objective_and_grad, 'compute_log_weights', None) is not None:
@@ -419,8 +424,7 @@ def _batched_step(objective_and_grad, has_log_norm):
 
         def step(params, draws):
             value, grad, log_norm = batched(params, draws)[:3]
-            return value, grad, (log_norm if has_log_norm
-                                 else torch.zeros_like(value))
+            return value, grad, log_norm if has_log_norm else None
     else:
         objective = getattr(objective_and_grad, 'objective', None)
         if has_log_norm or objective is None:
@@ -433,10 +437,25 @@ def _batched_step(objective_and_grad, has_log_norm):
 
         def step(params, draws):
             grad, value = value_and_grad(params, draws)
-            return value, grad, torch.zeros_like(value)
+            return value, grad, None
 
     step.presampled = True
     step.host_callback = getattr(objective_and_grad, 'host_callback', False)
+    return step
+
+
+def _batched_step(objective_and_grad, has_log_norm):
+    """`_batched_objective` with a log-norm of zeros where the objective
+    has none: the IA chains' step, whose history records the log-norms."""
+    objective = _batched_objective(objective_and_grad, has_log_norm)
+
+    def step(params, draws):
+        value, grad, log_norm = objective(params, draws)
+        return value, grad, (torch.zeros_like(value) if log_norm is None
+                             else log_norm)
+
+    step.presampled = True
+    step.host_callback = objective.host_callback
     return step
 
 

@@ -131,8 +131,8 @@ result line:
     ends rate / 10, 5000 iterations, 1e5 bound samples; finite khats and
     d2s; K1, the combine and the step kernel (one batched launch an
     iteration, four learning-rate tables) must have launched;
-15. (a) examples/large_d.py's default, counted the same way:
-    ``validated_vi`` with a full-rank Gaussian at d = 100 (P = 5150) on
+15. (a) examples/large_d.py's default through the port's
+    ``examples.large_d``, counted the same way: ``validated_vi`` with a full-rank Gaussian at d = 100 (P = 5150) on
     the N = 400 conjugate regression, from the prior, n_mc 800, 10000
     iterations, lr 0.05 -> 0.001, 1e6 bound samples; the example's own
     criterion (khat < 0.7, |mean - truth| < 0.05) must hold; K3, the
@@ -247,11 +247,38 @@ result line:
     categories and kernel records logged), ``count_compilations`` around one
     ``validated_vi`` counts at least one capture, and a ``Timer`` with
     ``sync`` of that fit prints its line.
+23. the example layer (``viabel_tpu_torch.examples``), float32, each
+    example with every launch count set to 0 just before it and read just
+    after, each wall printed beside the card's name and power limit: (a)
+    ``robust_regression``, ``funnel``, ``normal_mixture`` and
+    ``eight_schools`` (stored truth) at ``--full``, nothing cut, and
+    benchmarks/parity.py's 20 rows printed as ours, the JAX package's
+    CPU-f64 and TPU-f32 columns (benchmarks/RESULTS_*.json) and the
+    reference; every row with a seed band (benchmarks/KHAT_NOISE.json)
+    within its mean +- 4 sd, the full-rank khat within the JAX package's
+    CPU float32 band (-0.9063 +- 0.0635, tools/jax_khat_band.py) and the
+    rooted-input W2 within 2 % of 2.72; (b) ``chivi_experiments`` at full
+    widths (N, k, df, n_mc, iterations, 1e6 bound samples; each HMC truth
+    cut from 20000 samples to 4000, gated at R-hat 1.01), every stage
+    beside benchmarks/CHIVI_PROTOCOLS.md's line: each KLVI stage and the
+    +0.1 and +0.6 CHIVI stages with a mean error below 0.05, the +1.4
+    stage completing with a non-finite khat or a NaN mean error, the
+    ESS-damped stage's ``param_move_rel`` finite, K1 launched at d = 10,
+    14 and 30; then K1 on those protocols' regressions at d = 14 and 30
+    against its plain version (n = 1e6; lw 1e-12 float64, 2e-5 float32);
+    (c) ``multistart_pipeline --full``, ``linear_regression_ia``'s
+    protocol 2 (N 200, k 20, 1500 of 7000 iterations), ``eight_schools_ia``
+    full rank (3000 of 30000) and ``pod_layout`` at its own sizes with the
+    card listed 8 times: every printed number finite, each part's kernels
+    launched (protocol 2 and the IA run only ``philox_normal``, their
+    chains' init noise); the multistart's best PSIS-corrected mean within
+    0.25 of the NUTS truth; ``pod_layout``'s HMC chains at R-hat 1.01 or
+    less and its multistart's best d2 below that of q at the start.
 
 The line before the last is a JSON object with one entry per kernel:
 route, source, the TPU kernel it replaces, launches on the paths of phases
-2, 6, 10, 13, 14, 15 (a) and (b), 17, 18, 19, 21 and 22 (summed), the float32 max abs
-error, its time by
+2, 6, 10, 13, 14, 15 (a) and (b), 17, 18, 19, 21, 22 and 23 (summed), the
+float32 max abs error, its time by
 events around the call (``ms``) and on the card (``device_ms``), the plain
 version's time, its bound (the larger of bytes over 3.35 TB/s and
 operations over 67 TFLOP/s float32, H100 SXM data-sheet peaks; integer
@@ -1821,35 +1848,25 @@ def sweep_path(vt):
 
 
 def large_d_setup(vt, d):
-    """examples/large_d.py's model and family at `d`: the N = 4 d
-    conjugate regression (seed 7, noise scale 0.5, prior std 3), a
-    full-rank Gaussian, and q at the prior (float32 on the card)."""
-    from viabel_tpu_torch.models import (data_generator_linear,
-                                         linear_regression_model)
+    """examples/large_d.py's model, family and q at the prior at `d`, q on
+    the card."""
+    from viabel_tpu_torch.examples import large_d
 
-    data = data_generator_linear(N=4 * d, D=d, alpha=1.0,
-                                 noise_variance=0.25, rho=0.5, seed=7)
-    model = linear_regression_model(data['X'], data['Y'], noise_scale=0.5,
-                                    prior_std=3.0)
-    fam = vt.full_rank_gaussian_variational_family(d)
-    init = vt.init_from_moments(fam, np.zeros(d),
-                                9.0 * np.eye(d)).to('cuda', torch.float32)
-    return model, fam, init
+    model, fam, init = large_d.setup(d)
+    return model, fam, init.to('cuda')
 
 
 def large_d_fit(vt, d, n_iters, label):
-    """`validated_vi` of examples/large_d.py at `d` for `n_iters`
-    iterations, with the launch counts it made; the fit must meet the
-    example's own criterion (khat < 0.7, |mean - truth| < 0.05)."""
+    """examples/large_d.py's fit at `d` for `n_iters` iterations, with the
+    launch counts it made; the fit must meet the example's own criterion
+    (khat < 0.7, |mean - truth| < 0.05)."""
+    from viabel_tpu_torch.examples import large_d
+
     model, fam, init = large_d_setup(vt, d)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    t, out = wall(lambda: vt.validated_vi(
-        model, fam, init, n_iters, n_mc_samples=LD_MC,
-        n_bound_samples=LD_BOUND, learning_rate=0.05,
-        learning_rate_end=0.001, generator=card_generator(0),
-        device='cuda'))
+    t, out = wall(lambda: large_d.fit(model, fam, init, n_iters, 'cuda'))
     launches = read_launches()
     mean, cov = out['q_mean'].double().cpu().numpy(), \
         out['q_cov'].double().cpu().numpy()
@@ -3642,6 +3659,406 @@ def phase22(vt, model, fam):
     return total
 
 
+# phase 23: the example layer (viabel_tpu_torch.examples) on the card.  (a)
+# the four examples behind benchmarks/parity.py's 20 rows at --full, nothing
+# cut; (b) examples/chivi_experiments.py at full widths, each protocol's HMC
+# truth cut from 20000 samples to 4000 (the example's quick mode); (c)
+# multistart_pipeline --full, linear_regression_ia's protocol 2 at N 200, k
+# 20 (1500 of its 7000 iterations), eight_schools_ia's full-rank protocol
+# (3000 of 30000) and pod_layout at its own sizes with the card listed 8
+# times
+EX_HMC_SAMPLES, EX_IA2_ITERS, EX_ESIA_ITERS, EX_POD_DEVICES = \
+    4000, 1500, 3000, 8
+# multistart_pipeline's best start: its PSIS-corrected mean within 0.25 of
+# the NUTS truth (the JAX example's test, tests/test_examples.py)
+EX_MS_MEAN_ATOL = 0.25
+# a parity row inside mean +- 4 sd of its seed band: 20 rows at once, so 4
+# sd (not one row's 3) keeps the phase's false-alarm rate near 0.1 %
+PARITY_SD = 4
+# the full-rank robust-regression khat: the JAX package's own float32 band
+# on the CPU (tools/jax_khat_band.py), phase 13's rule, in place of the
+# TPU band of benchmarks/KHAT_NOISE.json
+FULL_RANK_KHAT = (-0.9063, 0.0635)
+ROOTED_W2, ROOTED_RTOL = 2.72, 0.02   # the notebook's own (rooted) input
+CHIVI_MEAN_ERR = 0.05                 # the JAX run gives 0.002-0.007
+# benchmarks/parity.py:180-243: row, example, its number, the reference
+PARITY_ROWS = (
+    ('robust-regression mf-t KLVI khat', 'robust_regression',
+     ('khat_klvi',), '0.92'),
+    ('robust-regression mf-t CHIVI khat', 'robust_regression',
+     ('khat_chivi',), '0.341'),
+    ('robust-regression full-rank KLVI khat', 'robust_regression',
+     ('khat_full',), '-0.93'),
+    ('robust-regression full-rank KLVI W2', 'robust_regression',
+     ('W2_full',), '0.385'),
+    ('robust-regression full-rank KLVI d2', 'robust_regression',
+     ('d2_full',), '5.92e-4'),
+    ('robust-regression full-rank KLVI mean_error', 'robust_regression',
+     ('mean_err_full',), '0.0456'),
+    ('funnel KLVI khat', 'funnel', ('khat_klvi',), '0.768'),
+    ('funnel CHIVI khat', 'funnel', ('khat_chivi',), '0.894'),
+    ('normal-mixture samples-only W2', 'normal_mixture',
+     ('samples_only', 'W2'), '6.08'),
+    ('normal-mixture samples-only d2', 'normal_mixture',
+     ('samples_only', 'd2'), '0.768'),
+    ('normal-mixture samples-only mean_error', 'normal_mixture',
+     ('samples_only', 'mean_error'), '4.79'),
+    ('normal-mixture q_var+log_norm W2', 'normal_mixture',
+     ('q_var_lnb', 'W2'), '4.41'),
+    ('normal-mixture q_var+log_norm d2', 'normal_mixture',
+     ('q_var_lnb', 'd2'), '0.277'),
+    ('normal-mixture q_var+log_norm mean_error', 'normal_mixture',
+     ('q_var_lnb', 'mean_error'), '2.52'),
+    ('normal-mixture analytic-moment (corrected) W2', 'normal_mixture',
+     ('analytic_mb', 'W2'), '6.08 (empirical)'),
+    ('normal-mixture analytic-moment (ref rooted input) W2',
+     'normal_mixture', ('analytic_mb_ref_input', 'W2'), '2.72'),
+    ('eight-schools CP KLVI khat', 'eight_schools', ('cp', 'khat_klvi'),
+     '0.906'),
+    ('eight-schools CP CHIVI khat', 'eight_schools', ('cp', 'khat_chivi'),
+     '0.875'),
+    ('eight-schools NCP KLVI khat', 'eight_schools', ('ncp', 'khat_klvi'),
+     '0.649'),
+    ('eight-schools NCP CHIVI khat', 'eight_schools', ('ncp', 'khat_chivi'),
+     '0.552'),
+)
+# benchmarks/parity.py:133-158: each banded row's seed band in
+# benchmarks/KHAT_NOISE.json (config, metric); the rooted-input row has none
+NOISE_KEY = {
+    'robust-regression mf-t KLVI khat': ('rr_klvi', 'khat'),
+    'robust-regression mf-t CHIVI khat': ('rr_chivi', 'khat'),
+    'robust-regression full-rank KLVI khat': ('rr_full_klvi', 'khat'),
+    'robust-regression full-rank KLVI W2': ('rr_full_klvi', 'W2'),
+    'robust-regression full-rank KLVI d2': ('rr_full_klvi', 'd2'),
+    'robust-regression full-rank KLVI mean_error':
+        ('rr_full_klvi', 'mean_error'),
+    'funnel KLVI khat': ('funnel_klvi', 'khat'),
+    'funnel CHIVI khat': ('funnel_chivi', 'khat'),
+    'eight-schools CP KLVI khat': ('es_cp_klvi', 'khat'),
+    'eight-schools CP CHIVI khat': ('es_cp_chivi', 'khat'),
+    'eight-schools NCP KLVI khat': ('es_ncp_klvi', 'khat'),
+    'eight-schools NCP CHIVI khat': ('es_ncp_chivi', 'khat'),
+    'normal-mixture samples-only W2': ('nm_samples_only', 'W2'),
+    'normal-mixture samples-only d2': ('nm_samples_only', 'd2'),
+    'normal-mixture samples-only mean_error': ('nm_samples_only',
+                                               'mean_error'),
+    'normal-mixture q_var+log_norm W2': ('nm_qvar_lnb', 'W2'),
+    'normal-mixture q_var+log_norm d2': ('nm_qvar_lnb', 'd2'),
+    'normal-mixture q_var+log_norm mean_error': ('nm_qvar_lnb',
+                                                 'mean_error'),
+    'normal-mixture analytic-moment (corrected) W2': ('nm_analytic', 'W2'),
+}
+# what each part of (a) must launch, and the adagrad runs it makes, all
+# through the graph
+EX_PARTS = {
+    'normal_mixture': (('lw_partials', 'combine_partials'), []),
+    'robust_regression': (('transform_score_partials', 'lw_partials',
+                           'combine_partials', 'adagrad_step'), [5000] * 6),
+    'funnel': (('transform_score_partials', 'lw_partials',
+                'combine_partials', 'adagrad_step'), [10000] * 2),
+    'eight_schools': (('transform_score_partials', 'lw_partials',
+                       'combine_partials', 'adagrad_step'),
+                      [10000] * 2 + [5000] * 2),
+}
+
+
+def read_json(path):
+    with open(os.path.join(HERE, path)) as f:
+        return json.load(f)
+
+
+def example_part(label, fn, names, runs=None):
+    """``fn()`` with the launch counts set to 0 just before it and read
+    just after: its wall beside the card, and every kernel of `names`
+    launched (with `runs`, the adagrad runs' lengths, each through the
+    graph after its window).  Returns ``(fn(), launches)``."""
+    reset_launches()
+    seconds, out = wall(fn)
+    launches = read_launches()
+    part_line(label, seconds)
+    log('kernel launches on {}: {}'.format(label, launches))
+    require_launched(launches, names, label)
+    if runs:
+        require_adagrad_steps(launches, runs, label)
+    return out, launches
+
+
+def parity_rows(outs):
+    """Phase 23 (a)'s 20 rows: ours beside the JAX package's CPU-f64 and
+    TPU-f32 columns and the reference, each banded row held to mean +- 4
+    sd of its seed band."""
+    cols = [{r[0]: r[1] for r in read_json(
+        'benchmarks/RESULTS_{}.json'.format(c))['rows']}
+        for c in ('cpu-f64', 'tpu-f32')]
+    noise = read_json('benchmarks/KHAT_NOISE.json')['configs']
+    out_of_band = []
+    log('parity rows: ours (H100 f32) | JAX CPU f64 | JAX TPU f32 | '
+        'reference | band')
+    for name, example, path, ref in PARITY_ROWS:
+        ours = outs[example]
+        for k in path:
+            ours = ours[k]
+        ours = float(ours)
+        if name == 'robust-regression full-rank KLVI khat':
+            mean, sd = FULL_RANK_KHAT
+            tpu = noise['rr_full_klvi']['khat']
+            band = ('JAX CPU f32 {} +- {} (TPU band {:.4f} +- {:.4f}, for '
+                    'the record)'.format(mean, sd, tpu['mean'], tpu['sd']))
+        elif name in NOISE_KEY:
+            cfg, metric = NOISE_KEY[name]
+            mean, sd = (noise[cfg][metric][k] for k in ('mean', 'sd'))
+            band = '{:.5g} +- {:.3g}'.format(mean, sd)
+        else:
+            mean = sd = None
+            band = 'none; within {:.0%} of {}'.format(ROOTED_RTOL,
+                                                       ROOTED_W2)
+        z = None if sd is None else (ours - mean) / sd
+        log('  {:<52} {:>11.5g} | {:>8} | {:>8} | {:>16} | {}{}'.format(
+            name, ours, cols[0].get(name, '-'), cols[1].get(name, '-'), ref,
+            band, '' if z is None else ' (z = {:+.2f})'.format(z)))
+        if z is None:
+            ok = abs(ours - ROOTED_W2) <= ROOTED_RTOL * ROOTED_W2
+        else:
+            ok = math.isfinite(ours) and abs(z) <= PARITY_SD
+        if not ok:
+            out_of_band.append(name)
+    if out_of_band:
+        raise AssertionError('parity rows outside their bands: {}'.format(
+            out_of_band))
+
+
+def parity_part(vt):
+    """Phase 23 (a): the examples behind benchmarks/parity.py at --full,
+    float32, each counted alone; returns the summed launches."""
+    from viabel_tpu_torch.examples import (eight_schools, funnel,
+                                           normal_mixture, robust_regression)
+    mains = dict(robust_regression=robust_regression.main,
+                 funnel=funnel.main, normal_mixture=normal_mixture.main,
+                 eight_schools=eight_schools.main)
+    total, outs = {}, {}
+    for name, main in mains.items():
+        names, runs = EX_PARTS[name]
+        outs[name], launches = example_part(
+            '23 (a) {} --full'.format(name),
+            lambda: main(full=True, device='cuda'), names, runs)
+        add_launches(total, launches)
+    parity_rows(outs)
+    return total
+
+
+def chivi_records():
+    """benchmarks/CHIVI_PROTOCOLS.md's recorded lines, by protocol and
+    stage."""
+    with open(os.path.join(HERE, 'benchmarks', 'CHIVI_PROTOCOLS.md')) as f:
+        text = f.read().split('```')[1]
+    records, proto = {}, None
+    for line in text.splitlines():
+        if line.startswith('== '):
+            proto = line.split()[1]
+            proto = 'perturbed_klvi' if proto == 'perturbed' else proto
+        elif ': mean_err' in line:
+            records.setdefault(proto, {})[
+                line.split(': mean_err')[0].strip()] = line.strip()
+    return records
+
+
+def check_k1_regression(vt, model, label):
+    """K1 against its plain version on the chivi protocol's regression at
+    its width: mean-field t(10) draws, n = 1e6, q at the least-squares
+    coefficients; lw to 1e-12 (float64) and 2e-5 (float32) relative plus
+    the K1 tolerance's atol (for lw near 0), the
+    statistics to 1e-12 and the regression rule (float32 moments move by
+    twice a few ulps of |lw|, ``REGRESSION_STATS_RTOL`` at |lw| ~ 120,
+    scaled with |lw|)."""
+    from viabel_tpu_torch.ops import lw_stats as ops
+
+    x, y = model.kernel_data[0], model.kernel_data[1]
+    d = x.shape[1]
+    fam = vt.mean_field_t_variational_family(d, 10)
+    z = fam.base_sample(card_generator(23), EXP_N, torch.float64)
+    beta = np.linalg.lstsq(x, y, rcond=None)[0]
+    for dtype, lw_rtol in ((torch.float64, 1e-12), (torch.float32, 2e-5)):
+        name = str(dtype).split('.')[1]
+        mean = torch.as_tensor(beta, dtype=dtype, device='cuda')
+        log_scale = torch.full((d,), math.log(0.05), dtype=dtype,
+                               device='cuda')
+        args = (z.to(dtype).contiguous(), mean, log_scale, model.kernel,
+                model.kernel_data_like(mean), 10.0)
+        lw, parts = ops.transform_score_partials(*args)
+        lw_p, parts_p = ops.transform_score_partials_plain(*args)
+        check_close('K1 regression at d = {} ({}) lw, {}'.format(
+            d, label, name), lw, lw_p, TOL[name]['lw_atol'], lw_rtol)
+        stats_rtol = 1e-12 if dtype == torch.float64 else \
+            REGRESSION_STATS_RTOL[name] * max(
+                1.0, float(lw_p.abs().max()) / 120.0)
+        check_close('K1 regression at d = {} statistics, {}'.format(
+            d, name), ops.combine_partials(parts),
+            ops.combine_partials_plain(parts_p), 0, stats_rtol)
+
+
+def chivi_part(vt):
+    """Phase 23 (b): examples/chivi_experiments.py at full widths, each
+    protocol and the perturbed stage counted alone, every stage beside its
+    recorded line; then K1 at d = 14 and 30 against its plain version.
+    Returns the summed launches."""
+    from viabel_tpu_torch.examples import chivi_experiments as ce
+    from viabel_tpu_torch.models import (data_generator_linear,
+                                         robust_regression_model)
+
+    records, total, results = chivi_records(), {}, {}
+    for name, args, kw in ce.protocols(full=True,
+                                       hmc_samples=EX_HMC_SAMPLES,
+                                       device='cuda'):
+        runs = [args[5]] + [cfg[3] for cfg in args[4]]
+        # HMC's R-hat gate (hmc_ground_truth's r_hat_tol = 1.01) raises
+        # inside the run above 1.01
+        results[name], launches = example_part(
+            '23 (b) {} (N {}, k {})'.format(name, args[1], args[2]),
+            lambda: ce.run_protocol(*args, **kw),
+            ('transform_score_partials', 'combine_partials',
+             'adagrad_step'), runs)
+        log('K1 launched at d = {}: {} times'.format(
+            args[2], launches['transform_score_partials']))
+        add_launches(total, launches)
+    results['perturbed_klvi'], launches = example_part(
+        '23 (b) perturbed KLVI', lambda: ce.perturbed_klvi(
+            full=True, device='cuda'),
+        ('transform_score_partials', 'combine_partials', 'adagrad_step'))
+    if launches['adagrad_step (replayed)'] != 0:
+        raise AssertionError('the perturbed objective samples inside its '
+                             'step and must run eagerly')
+    add_launches(total, launches)
+
+    log('chivi stages: ours (H100 f32) | recorded (TPU v5e f32, '
+        'benchmarks/CHIVI_PROTOCOLS.md)')
+    bad = []
+    for proto, stages in results.items():
+        if 'khat' in stages:
+            stages = {'perturbed_klvi': stages}
+        for stage, res in stages.items():
+            key = 'klvi mf-t(10)' if stage == 'klvi' else stage
+            log('  {:<14} {:>26}: mean_err = {:.4f}  khat = {:+.3f}{} | {}'
+                .format(proto, key, res['mean_err'], res['khat'],
+                        '  param_move_rel = {:.4g}'.format(
+                            res['param_move_rel'])
+                        if 'param_move_rel' in res else '',
+                        records.get(proto, {}).get(key, 'none recorded')))
+            well_started = stage == 'klvi' or '+0.1' in stage \
+                or '+0.6' in stage
+            if well_started and not res['mean_err'] < CHIVI_MEAN_ERR:
+                bad.append('{} {}: mean_err {}'.format(proto, stage,
+                                                       res['mean_err']))
+            if '(bad)' in stage and math.isfinite(res['khat']) and \
+                    not math.isnan(res['mean_err']):
+                bad.append('{} {}: finite khat and mean_err'.format(
+                    proto, stage))
+            if 'param_move_rel' in res and \
+                    not math.isfinite(res['param_move_rel']):
+                bad.append('{} {}: param_move_rel {}'.format(
+                    proto, stage, res['param_move_rel']))
+    if bad:
+        raise AssertionError('chivi stages off their protocol: {}'.format(
+            bad))
+    for N, k in ((80, 14), (90, 30)):
+        data = data_generator_linear(N, k, alpha=1.0, noise_variance=0.25,
+                                     rho=0.1, seed=5080)
+        model = robust_regression_model(data['X'], data['Y'], df=40.0)
+        check_k1_regression(vt, model, 'N = {}'.format(N))
+    return total
+
+
+def finite_leaves(label, value):
+    """Every number in a nested result is finite."""
+    if isinstance(value, dict):
+        for k, v in value.items():
+            finite_leaves('{} {}'.format(label, k), v)
+    elif isinstance(value, (list, tuple)):
+        for i, v in enumerate(value):
+            finite_leaves('{} [{}]'.format(label, i), v)
+    elif isinstance(value, (int, float, np.floating, np.integer)) and \
+            not is_finite(value):
+        raise AssertionError('{} is not finite: {}'.format(label, value))
+
+
+def rest_part(vt):
+    """Phase 23 (c): the other examples at full width, depths cut as
+    listed; returns the summed launches."""
+    from viabel_tpu_torch.examples import (eight_schools_ia,
+                                           linear_regression_ia,
+                                           multistart_pipeline, pod_layout)
+    from viabel_tpu_torch.models import robust_regression_model
+
+    total = {}
+    out, launches = example_part(
+        '23 (c) multistart_pipeline --full',
+        lambda: multistart_pipeline.main(full=True, device='cuda'),
+        ('transform_score_partials', 'combine_partials', 'adagrad_step'),
+        [5000])
+    finite_leaves('multistart khat', out['khat'])
+    finite_leaves('multistart best bounds', {
+        k: out['bounds'][out['best']][k] for k in ('d2', 'W2', 'mean_error')})
+    psis_err = float(np.max(np.abs(
+        out['psis_mean'][out['best']].double().cpu().numpy()
+        - robust_regression_model().true_mean)))
+    log('  best start {}: PSIS-corrected mean off the NUTS truth by {!r} '
+        '(limit {})'.format(out['best'], psis_err, EX_MS_MEAN_ATOL))
+    if not psis_err <= EX_MS_MEAN_ATOL:
+        raise AssertionError('multistart_pipeline: the best start\'s PSIS '
+                             'mean is {} off the truth'.format(psis_err))
+    add_launches(total, launches)
+    out, launches = example_part(
+        '23 (c) linear_regression_ia protocol 2 (N 200, k 20, {} of 7000 '
+        'iterations)'.format(EX_IA2_ITERS),
+        lambda: linear_regression_ia.protocol2(
+            full=True, n_iters=EX_IA2_ITERS, device='cuda'),
+        ('philox_normal',))
+    finite_leaves('protocol 2', out)
+    add_launches(total, launches)
+    out, launches = example_part(
+        '23 (c) eight_schools_ia full rank ({} of 30000 iterations)'.format(
+            EX_ESIA_ITERS),
+        lambda: eight_schools_ia.run_full_rank(
+            full=True, n_iters=EX_ESIA_ITERS, device='cuda'),
+        ('philox_normal',))
+    finite_leaves('eight_schools_ia full rank', {
+        k: out[k] for k in ('raw_mean_err', 'ia_mean_err', 'ia_cov_err',
+                            'start_avg_mean_iters', 'start_avg_sigma_iters')})
+    finite_leaves('eight_schools_ia R-hat', out['r_hat_mean'].tolist())
+    add_launches(total, launches)
+    out, launches = example_part(
+        '23 (c) pod_layout on the card listed {} times'.format(
+            EX_POD_DEVICES),
+        lambda: pod_layout.main(['--devices', str(EX_POD_DEVICES)]),
+        ('transform_score_partials', 'combine_partials', 'adagrad_step'))
+    finite_leaves('pod_layout', out)
+    # the HMC chains must meet hmc_ground_truth's R-hat rule, and the
+    # multistart's best fit must be closer to p than q at the start (layout
+    # 1's pass); the IA chains' R-hat is the example's report at its depth
+    if not out['hmc']['r_hat_max'] <= 1.01:
+        raise AssertionError('pod_layout: the HMC chains\' R-hat is {}'
+                             .format(out['hmc']['r_hat_max']))
+    if not out['multistart']['d2'] < out['sharded']['d2']:
+        raise AssertionError('pod_layout: the best start\'s d2 {} is not '
+                             'below the start\'s {}'.format(
+                                 out['multistart']['d2'],
+                                 out['sharded']['d2']))
+    finite_leaves('pod_layout', out)
+    add_launches(total, launches)
+    return total
+
+
+def phase23(vt):
+    """Phase 23: the example layer on the card; returns the summed launch
+    counts of its parts."""
+    t0 = time.perf_counter()
+    total = {}
+    add_launches(total, parity_part(vt))
+    add_launches(total, chivi_part(vt))
+    add_launches(total, rest_part(vt))
+    part_line('phase 23 in all', time.perf_counter() - t0)
+    return total
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -3699,6 +4116,8 @@ def main():
     path_launches.extend(new_phases(vt))
     path_launches.append(phase22(vt, model, fam))
     phases_done('22')
+    path_launches.append(phase23(vt))
+    phases_done('23')
 
     kernels = [dict(name=name, route='cuda',
                     source='viabel_tpu_torch/csrc/' + SOURCE[name],

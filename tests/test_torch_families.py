@@ -77,3 +77,27 @@ def test_constructors_are_memoized_and_validate():
     assert pt.mean_field_gaussian_variational_family(2).df is None
     p = fam.init_param(torch.float64)
     assert p.shape == (4,) and p.dtype == torch.float64 and not p.any()
+
+
+@pytest.mark.parametrize('kind', ['mean_field', 'full_rank'])
+def test_logdensity_alias_matches_jax(kind):
+    """`VariationalFamily.logdensity(x, var_param)`, the reference's
+    argument order, is `log_prob(var_param, x)` in both packages
+    (viabel_tpu/families.py:138-140)."""
+    if kind == 'mean_field':
+        jf = vt.mean_field_gaussian_variational_family(4)
+        tf = pt.mean_field_gaussian_variational_family(4)
+    else:
+        jf = vt.full_rank_gaussian_variational_family(4)
+        tf = pt.full_rank_gaussian_variational_family(4)
+    rng = np.random.default_rng(3)
+    vp = rng.normal(0, 0.3, jf.var_param_dim)
+    x = rng.normal(0, 1.5, (50, 4))
+    got = tf.logdensity(torch.as_tensor(x), interop.var_param(vp))
+    np.testing.assert_array_equal(
+        got.numpy(), tf.log_prob(interop.var_param(vp),
+                                 torch.as_tensor(x)).numpy())
+    np.testing.assert_allclose(
+        got.numpy(), np.asarray(jf.logdensity(jnp.asarray(x),
+                                              jnp.asarray(vp))),
+        rtol=RTOL)

@@ -129,3 +129,56 @@ def test_ctypes_signatures_match_the_c_entry_points(source, module):
                                src).group(1).split(',')
             assert params[-1].split() == ['void*', 'stream']
             assert len(params) == len(argtypes) + 1, name
+
+
+EXAMPLE_MODULES = ('__init__', '_common', 'normal_mixture',
+                   'robust_regression', 'funnel', 'eight_schools',
+                   'linear_regression_ia', 'eight_schools_ia',
+                   'chivi_experiments', 'multistart_pipeline', 'pod_layout',
+                   'large_d')
+
+
+@pytest.mark.parametrize('module', EXAMPLE_MODULES)
+def test_example_modules_are_scanned_and_import_no_jax(module):
+    """The example layer is among the scanned sources and imports neither
+    JAX, nor the JAX package, nor the JAX package's examples/: only torch,
+    numpy, scipy and the port (relative imports)."""
+    path = os.path.join(ROOT, 'viabel_tpu_torch', 'examples',
+                        module + '.py')
+    assert path in set(_port_sources())
+    for mod in _imported_modules(path):
+        assert mod.split('.')[0] not in ('jax', 'jaxlib', 'viabel_tpu',
+                                         'examples'), mod
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom) and node.level > 0:
+            assert node.level <= 2, 'reaches outside the port'
+
+
+def _example_calls():
+    from viabel_tpu_torch.examples import (
+        chivi_experiments, eight_schools, eight_schools_ia, funnel, large_d,
+        linear_regression_ia, multistart_pipeline, normal_mixture,
+        pod_layout, robust_regression)
+    return {
+        'normal_mixture': normal_mixture.main,
+        'robust_regression': robust_regression.main,
+        'funnel': funnel.main,
+        'eight_schools': eight_schools.main,
+        'linear_regression_ia': linear_regression_ia.main,
+        'linear_regression_ia.protocol2': linear_regression_ia.protocol2,
+        'eight_schools_ia': eight_schools_ia.main,
+        'eight_schools_ia.run_full_rank': eight_schools_ia.run_full_rank,
+        'chivi_experiments': chivi_experiments.main,
+        'multistart_pipeline': multistart_pipeline.main,
+        'pod_layout': lambda: pod_layout.main(['--quick']),
+        'large_d': large_d.main,
+    }
+
+
+@pytest.mark.parametrize('name', sorted(_example_calls()))
+def test_example_entry_points_refuse_to_run_without_cuda(monkeypatch, name):
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        _example_calls()[name]()

@@ -544,7 +544,8 @@ def _limit_rows(d):
 
 
 @pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
-@pytest.mark.parametrize('d', [2, 3, 10])
+# d = 14 and 30: the chivi protocols' widths (examples/chivi_experiments.py)
+@pytest.mark.parametrize('d', [2, 3, 10, 14, 30])
 @pytest.mark.parametrize('n_rows', [1, 25, 100, 'limit'])
 @pytest.mark.parametrize('robust', [False, True])
 def test_regression_rows_in_k1_and_k2_match_plain(cuda, dtype, d, n_rows,

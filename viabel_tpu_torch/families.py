@@ -89,6 +89,11 @@ class VariationalFamily(NamedTuple):
     transform: Callable = None
     df: Optional[float] = None
 
+    def logdensity(self, x, var_param):
+        """`log_prob` in the reference's argument order
+        (viabel_tpu/families.py:138-140)."""
+        return self.log_prob(var_param, x)
+
     def init_param(self, dtype=torch.float32, device='cpu'):
         return torch.zeros(self.var_param_dim, dtype=dtype, device=device)
 

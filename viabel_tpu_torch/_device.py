@@ -22,6 +22,8 @@ import threading
 
 import torch
 
+from ._trace import span
+
 __all__ = ['resolve_device', 'fp32_matmul_policy', 'default_generator',
            'pick_driver', 'capture', 'between_captures']
 
@@ -43,7 +45,7 @@ def capture(body, stream):
     """``body()`` captured on `stream` as a `torch.cuda.CUDAGraph`, under
     the process-wide capture lock.  A failed capture raises."""
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.stream(stream), _capture_lock:
+    with span('capture'), torch.cuda.stream(stream), _capture_lock:
         graph.capture_begin()
         try:
             body()

@@ -14,6 +14,7 @@ from warnings import warn
 import numpy as np
 import torch
 
+from ._trace import span, to_host
 from .families import NoClosedFormMomentError
 from .ops import lw_stats as _lw_ops
 
@@ -50,8 +51,9 @@ def family_moment_bounds(family, var_param):
             _families_without_closed_moments.move_to_end(family)
             return None
     try:
-        c2, c4 = torch.stack([family.pth_moment(var_param, 2),
-                              family.pth_moment(var_param, 4)]).cpu().tolist()
+        c24 = torch.stack([family.pth_moment(var_param, 2),
+                           family.pth_moment(var_param, 4)])
+        c2, c4 = to_host(c24).tolist()
     except NoClosedFormMomentError:
         with _no_closed_moments_lock:
             _families_without_closed_moments[family] = True
@@ -83,7 +85,7 @@ def log_weight_stats(log_weights, alpha=2.0):
     ``n`` (viabel_tpu/bounds.py:124-156).  A CUDA tensor goes through the
     K3 and combine kernels; anything else through their plain versions."""
     lw = _as_tensor(log_weights).reshape(-1).contiguous()
-    values = _lw_ops.lw_stats(lw, float(alpha)).cpu().tolist()
+    values = to_host(_lw_ops.lw_stats(lw, float(alpha))).tolist()
     out = dict(zip(STAT_KEYS, values))
     out['n'] = int(lw.shape[0])
     return out
@@ -154,7 +156,7 @@ def wasserstein_bounds(d2, samples=None, moment_bound_fn=None, _moments=None):
                              'given')
         m = central_moments(samples) if _moments is None else _moments
         c24 = torch.stack([_as_tensor(m['C2']), _as_tensor(m['C4'])])
-        c2, c4 = c24.cpu().tolist()
+        c2, c4 = to_host(c24).tolist()
         moments = {2: c2, 4: c4}
         moment_bound_fn = lambda p: moments[p]
     d2 = max(float(d2), 0.0)
@@ -182,7 +184,7 @@ def _compute_norm_if_needed(var):
     """Spectral norm of a covariance matrix (array or tensor), identity on
     scalars."""
     if isinstance(var, torch.Tensor):
-        var = var.cpu().numpy()
+        var = to_host(var).numpy()
     var = np.asarray(var)
     if var.ndim == 2:
         return np.linalg.norm(var, ord=2)
@@ -233,20 +235,21 @@ def all_bounds(log_weights, samples=None, moment_bound_fn=None,
         raise ValueError('all_bounds requires alpha == 2 (the Wasserstein '
                          'and moment-error bounds are 2-divergence bounds); '
                          'use divergence_bound for other orders')
-    stats = log_weight_stats(log_weights, alpha=alpha)
-    moments = None
-    if samples is not None:
-        moments = central_moments(samples, with_cov=q_var is None)
-    d2, log_norm_bound = divergence_bound(
-        None, alpha=alpha, log_norm_bound=log_norm_bound,
-        return_log_norm_bound=True, _stats=stats)
-    results = wasserstein_bounds(d2, moment_bound_fn=moment_bound_fn,
-                                 _moments=moments)
-    if q_var is None:
-        q_var = moments['cov'] if moments is not None else np.inf
-    if p_var is None:
-        p_var = np.inf
-    results.update(error_bounds(q_var=q_var, p_var=p_var, **results))
-    results['d2'] = d2
-    results['log_norm_bound'] = log_norm_bound
-    return results
+    with span('host_bounds'):
+        stats = log_weight_stats(log_weights, alpha=alpha)
+        moments = None
+        if samples is not None:
+            moments = central_moments(samples, with_cov=q_var is None)
+        d2, log_norm_bound = divergence_bound(
+            None, alpha=alpha, log_norm_bound=log_norm_bound,
+            return_log_norm_bound=True, _stats=stats)
+        results = wasserstein_bounds(d2, moment_bound_fn=moment_bound_fn,
+                                     _moments=moments)
+        if q_var is None:
+            q_var = moments['cov'] if moments is not None else np.inf
+        if p_var is None:
+            p_var = np.inf
+        results.update(error_bounds(q_var=q_var, p_var=p_var, **results))
+        results['d2'] = d2
+        results['log_norm_bound'] = log_norm_bound
+        return results

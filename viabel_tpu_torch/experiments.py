@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from ._device import default_generator, resolve_device
+from ._trace import span
 from .bounds import all_bounds, family_moment_bounds
 from .objectives import black_box_chivi, black_box_klvi
 from .ops import gaussian_lw as _gaussian_ops
@@ -138,17 +139,19 @@ def draw_and_score(log_density, var_family, var_param, z, alpha=2.0):
     The samples ``var_family.transform(var_param, z)`` are formed in torch
     in both branches; the fused kernel scores from z and never reads them.
     """
-    samples = var_family.transform(var_param, z)
-    kernel = getattr(log_density, 'kernel', None)
-    if kernel is not None and var_family.name in _KERNEL_FAMILIES:
-        d = var_family.dim
-        lw, stats = _lw_ops.transform_score_stats(
-            z.contiguous(), var_param[:d].contiguous(),
-            var_param[d:].contiguous(), kernel,
-            log_density.kernel_data_like(z), df=var_family.df, alpha=alpha)
-        return samples, lw, stats
-    lw = log_density(samples) - var_family.log_prob(var_param, samples)
-    return samples, lw, _lw_ops.lw_stats(lw.contiguous(), alpha)
+    with span('bound_pass', var_param.device):
+        samples = var_family.transform(var_param, z)
+        kernel = getattr(log_density, 'kernel', None)
+        if kernel is not None and var_family.name in _KERNEL_FAMILIES:
+            d = var_family.dim
+            lw, stats = _lw_ops.transform_score_stats(
+                z.contiguous(), var_param[:d].contiguous(),
+                var_param[d:].contiguous(), kernel,
+                log_density.kernel_data_like(z), df=var_family.df,
+                alpha=alpha)
+            return samples, lw, stats
+        lw = log_density(samples) - var_family.log_prob(var_param, samples)
+        return samples, lw, _lw_ops.lw_stats(lw.contiguous(), alpha)
 
 
 def get_samples_and_log_weights(log_density, var_family, var_param,

@@ -24,6 +24,8 @@ import math
 
 import torch
 
+from .._trace import to_host
+
 __all__ = ['philox4x32', 'uniform_from_bits', 'box_muller',
            'philox_normal_plain', 'philox_seed', 'fold_in', 'MAX_SEED']
 
@@ -101,9 +103,9 @@ def philox_seed(generator):
     """A 64-bit Philox seed drawn from ``generator`` (which it advances),
     as the port's kernels take their randomness from a `torch.Generator`.
     A CPU and a CUDA generator seeded alike give different seeds."""
-    hi, lo = torch.randint(0, 2 ** 32, (2,), dtype=torch.int64,
-                           generator=generator,
-                           device=generator.device).tolist()
+    hi, lo = to_host(torch.randint(0, 2 ** 32, (2,), dtype=torch.int64,
+                                   generator=generator,
+                                   device=generator.device)).tolist()
     return (hi << 32) | lo
 
 

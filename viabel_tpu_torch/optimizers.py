@@ -37,6 +37,7 @@ import torch
 
 from ._device import (capture, default_generator, on_device, pick_driver,
                       resolve_device)
+from ._trace import span, to_host
 from .diagnostics import (compute_R_hat_adaptive, compute_R_hat_halfway,
                           stochastic_iterate_averaging)
 from .objectives import map_draws, stack_draws
@@ -196,7 +197,7 @@ def _adagrad_graph(obj, state, source, start, iters, window, report=None):
     side = torch.cuda.Stream(device)
     side.wait_stream(main)
     warm = min(max(window - start, 0), iters)
-    with torch.cuda.stream(side):
+    with span('eager'), torch.cuda.stream(side):
         _adagrad_eager(obj, state, source, start, warm, report)
         if warm == 0 and iters:
             obj(state.param, _draws_of(obj, state, source, start))
@@ -209,13 +210,14 @@ def _adagrad_graph(obj, state, source, start, iters, window, report=None):
             graphs.append((graph, steps, count))
     main.wait_stream(side)
     i = start + warm
-    for graph, steps, count in graphs:
-        for _ in range(count):
-            adagrad_replay(graph, steps)
-            if report is not None:
-                for j in range(i, i + steps):
-                    report(j)
-            i += steps
+    with span('replay'):
+        for graph, steps, count in graphs:
+            for _ in range(count):
+                adagrad_replay(graph, steps)
+                if report is not None:
+                    for j in range(i, i + steps):
+                        report(j)
+                i += steps
 
 
 def _learning_rates(n_iters, learning_rate, learning_rate_end, dtype):
@@ -230,9 +232,10 @@ def _learning_rates(n_iters, learning_rate, learning_rate_end, dtype):
 
 def _check_ran(counter, end):
     """Raise unless the device counter of a run reached `end`."""
-    if int(counter[0]) != end:
+    ran = int(to_host(counter[0]))
+    if ran != end:
         raise RuntimeError('the adagrad run stopped at iteration {} of {}'
-                           .format(int(counter[0]), end))
+                           .format(ran, end))
 
 
 def _advance(obj, state, source, start, iters, window, driver=None,
@@ -244,18 +247,21 @@ def _advance(obj, state, source, start, iters, window, driver=None,
     presampled objective's whole-run block of draws, or an
     `_IterationGenerator`.  Given a list `pending`, the check's arguments
     are appended to it instead, so that nothing waits for the device and
-    runs on other devices can be started meanwhile."""
-    driver = pick_driver(driver, state.param.device,
+    runs on other devices can be started meanwhile (and the span
+    ``vt.optimize`` then ends without a synchronize)."""
+    device = state.param.device
+    driver = pick_driver(driver, device,
                          getattr(obj, 'host_callback', False),
                          getattr(obj, 'presampled', False))
-    if driver == 'graph':
-        _adagrad_graph(obj, state, source, start, iters, window, report)
-    else:
-        _adagrad_eager(obj, state, source, start, iters, report)
-    if pending is None:
-        _check_ran(state.counter, start + iters)
-    else:
-        pending.append((state.counter, start + iters))
+    with span('optimize', device if pending is None else None):
+        if driver == 'graph':
+            _adagrad_graph(obj, state, source, start, iters, window, report)
+        else:
+            _adagrad_eager(obj, state, source, start, iters, report)
+        if pending is None:
+            _check_ran(state.counter, start + iters)
+        else:
+            pending.append((state.counter, start + iters))
 
 
 def _source(draws, device):

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from ._device import default_generator, on_device, resolve_device
+from ._trace import span, to_host
 from .bounds import (STAT_KEYS, divergence_bound, error_bounds,
                      wasserstein_bounds)
 from .experiments import draw_and_score
@@ -464,41 +465,45 @@ def validated_vi(log_density, var_family, init_param, n_iters, *,
     ``smoothed_log_weights``, ``psis_mean``, ``psis_cov`` (tensors),
     ``khat`` (float) and ``bounds`` (the `all_bounds` dict).
     """
-    if mesh is not None:
-        _check_sample_axis(mesh, axis, n_bound_samples)
-    _, generator, objective_and_grad, init_param = _setup(
-        log_density, var_family, init_param, objective_and_grad,
-        n_mc_samples, generator, mesh, device)
-    obj = _wrap_objective(objective_and_grad, has_log_norm)
-    if mesh is not None:
-        out = _validated_vi_mesh(
-            obj, objective_and_grad, var_family, log_density, n_iters,
-            n_bound_samples, alpha, generator, window, learning_rate,
-            epsilon, learning_rate_end, init_param, mesh, axis)
-    else:
-        opt_draws = generator
-        if obj.presampled:
-            opt_draws = objective_and_grad.make_draws(generator, n_iters,
-                                                      init_param.dtype)
-        bound_draws = var_family.base_sample(generator, n_bound_samples,
-                                             init_param.dtype)
-        out = _pipeline_core(obj, var_family, log_density, n_iters, window,
-                             learning_rate, epsilon, learning_rate_end,
-                             alpha, _tail_len(n_bound_samples, 1.0),
-                             init_param, opt_draws, bound_draws)
-    bounds, khat, diverged = _assemble_bounds(
-        out.pop('stats'), out.pop('moments'), out['khat'], out['q_cov'],
-        n_bound_samples, alpha, log_norm_bound)
-    # the divergence signal is non-finite LOG-WEIGHT STATISTICS: khat = inf
-    # is also the legitimate short-tail outcome of a tiny, healthy bound pass
-    if diverged:
-        warnings.warn(
-            'the optimizer run diverged (non-finite log-weights at the '
-            'fitted parameter): bounds are vacuous. Reduce the learning '
-            'rate', DivergedRunWarning, stacklevel=2)
-    out['bounds'] = bounds
-    out['khat'] = khat
-    return out
+    with span('fit'):
+        if mesh is not None:
+            _check_sample_axis(mesh, axis, n_bound_samples)
+        _, generator, objective_and_grad, init_param = _setup(
+            log_density, var_family, init_param, objective_and_grad,
+            n_mc_samples, generator, mesh, device)
+        obj = _wrap_objective(objective_and_grad, has_log_norm)
+        if mesh is not None:
+            out = _validated_vi_mesh(
+                obj, objective_and_grad, var_family, log_density, n_iters,
+                n_bound_samples, alpha, generator, window, learning_rate,
+                epsilon, learning_rate_end, init_param, mesh, axis)
+        else:
+            with span('draws', init_param.device):
+                opt_draws = generator
+                if obj.presampled:
+                    opt_draws = objective_and_grad.make_draws(
+                        generator, n_iters, init_param.dtype)
+                bound_draws = var_family.base_sample(
+                    generator, n_bound_samples, init_param.dtype)
+            out = _pipeline_core(obj, var_family, log_density, n_iters,
+                                 window, learning_rate, epsilon,
+                                 learning_rate_end, alpha,
+                                 _tail_len(n_bound_samples, 1.0), init_param,
+                                 opt_draws, bound_draws)
+        bounds, khat, diverged = _assemble_bounds(
+            out.pop('stats'), out.pop('moments'), out['khat'], out['q_cov'],
+            n_bound_samples, alpha, log_norm_bound)
+        # the divergence signal is non-finite LOG-WEIGHT STATISTICS: khat =
+        # inf is also the legitimate short-tail outcome of a tiny, healthy
+        # bound pass
+        if diverged:
+            warnings.warn(
+                'the optimizer run diverged (non-finite log-weights at the '
+                'fitted parameter): bounds are vacuous. Reduce the learning '
+                'rate', DivergedRunWarning, stacklevel=2)
+        out['bounds'] = bounds
+        out['khat'] = khat
+        return out
 
 
 def _assemble_bounds(stats, moments, khat, q_cov, n, alpha, log_norm_bound):
@@ -506,32 +511,33 @@ def _assemble_bounds(stats, moments, khat, q_cov, n, alpha, log_norm_bound):
     each (viabel_tpu/pipeline.py:349-378).  A diverged run (non-finite
     statistics or covariance) degrades to infinite bounds instead of
     raising.  Returns ``(bounds, khat, diverged)``."""
-    stats = dict(zip(STAT_KEYS, stats.cpu().tolist()), n=n)
-    c2, c4 = moments.cpu().tolist()
-    khat = float(khat.cpu())
-    q_cov = q_cov.cpu().numpy()
-    if not np.all(np.isfinite(q_cov)):
-        q_cov = np.inf
-    finite_stats = all(np.isfinite(stats[k]) for k in STAT_KEYS)
-    if finite_stats:
-        d2, log_norm_bound = divergence_bound(
-            None, alpha=alpha, log_norm_bound=log_norm_bound,
-            return_log_norm_bound=True, _stats=stats)
-    else:
-        d2 = np.inf
-        if log_norm_bound is None:
-            log_norm_bound = -np.inf
-    bounds = {}
-    if alpha == 2:
-        moments = {2: c2, 4: c4}
-        moment_fn = (moments.get if np.isfinite(c2) and np.isfinite(c4)
-                     else lambda p: np.inf)
-        bounds = wasserstein_bounds(d2 if np.isfinite(d2) else np.inf,
-                                    moment_bound_fn=moment_fn)
-        bounds.update(error_bounds(q_var=q_cov, **bounds))
-    bounds['d2' if alpha == 2 else 'dalpha'] = d2
-    bounds['log_norm_bound'] = log_norm_bound
-    return bounds, khat, not finite_stats
+    with span('host_bounds'):
+        stats = dict(zip(STAT_KEYS, to_host(stats).tolist()), n=n)
+        c2, c4 = to_host(moments).tolist()
+        khat = float(to_host(khat))
+        q_cov = to_host(q_cov).numpy()
+        if not np.all(np.isfinite(q_cov)):
+            q_cov = np.inf
+        finite_stats = all(np.isfinite(stats[k]) for k in STAT_KEYS)
+        if finite_stats:
+            d2, log_norm_bound = divergence_bound(
+                None, alpha=alpha, log_norm_bound=log_norm_bound,
+                return_log_norm_bound=True, _stats=stats)
+        else:
+            d2 = np.inf
+            if log_norm_bound is None:
+                log_norm_bound = -np.inf
+        bounds = {}
+        if alpha == 2:
+            moments = {2: c2, 4: c4}
+            moment_fn = (moments.get if np.isfinite(c2) and np.isfinite(c4)
+                         else lambda p: np.inf)
+            bounds = wasserstein_bounds(d2 if np.isfinite(d2) else np.inf,
+                                        moment_bound_fn=moment_fn)
+            bounds.update(error_bounds(q_var=q_cov, **bounds))
+        bounds['d2' if alpha == 2 else 'dalpha'] = d2
+        bounds['log_norm_bound'] = log_norm_bound
+        return bounds, khat, not finite_stats
 
 
 def _finalize_batch(out, n_bound_samples, alpha, log_norm_bound):
@@ -602,55 +608,57 @@ def validated_vi_multistart(log_density, var_family, init_param, n_iters, *,
     floats, and ``best`` the index of the start with the smallest finite
     validated divergence bound.
     """
-    device, generator, objective_and_grad, init_param = _setup(
-        log_density, var_family, init_param, objective_and_grad,
-        n_mc_samples, generator, mesh, device)
-    dtype = init_param.dtype
-    perturb_seed = philox_seed(generator)
-    if init_params is None:
-        noise = philox_normal(n_starts, init_param.shape[0], perturb_seed,
-                              dtype=dtype, device=device)
-        init_params = _perturbed_inits(init_param, n_starts, perturb_scale,
-                                       noise)
-    else:
-        init_params = torch.as_tensor(init_params, device=device)
-        n_starts = init_params.shape[0]
-    seeds = [philox_seed(generator) for _ in range(n_starts)]
-    presampled = getattr(objective_and_grad, 'presampled', False)
-    lr_tables = _learning_rates(n_iters, learning_rate, learning_rate_end,
-                                dtype).repeat(n_starts, 1)
-    if mesh is not None:
-        sharded = _check_run_axis(
-            mesh, axis, sample_axis, n_starts, n_bound_samples,
-            'multistart partitions starts', 'n_starts')
+    with span('fit'):
+        device, generator, objective_and_grad, init_param = _setup(
+            log_density, var_family, init_param, objective_and_grad,
+            n_mc_samples, generator, mesh, device)
+        dtype = init_param.dtype
+        presampled = getattr(objective_and_grad, 'presampled', False)
+        with span('draws', device):
+            perturb_seed = philox_seed(generator)
+            if init_params is None:
+                noise = philox_normal(n_starts, init_param.shape[0],
+                                      perturb_seed, dtype=dtype, device=device)
+                init_params = _perturbed_inits(init_param, n_starts,
+                                               perturb_scale, noise)
+            else:
+                init_params = torch.as_tensor(init_params, device=device)
+                n_starts = init_params.shape[0]
+            seeds = [philox_seed(generator) for _ in range(n_starts)]
+            if mesh is None:
+                generators = [torch.Generator(device=device).manual_seed(s)
+                              for s in seeds]
+                opt_draws = (stack_draws([objective_and_grad.make_draws(
+                    g, n_iters, dtype) for g in generators])
+                    if presampled else generators)
+                bound_draws = stack_draws([var_family.base_sample(
+                    g, n_bound_samples, dtype) for g in generators])
+        lr_tables = _learning_rates(n_iters, learning_rate, learning_rate_end,
+                                    dtype).repeat(n_starts, 1)
+        if mesh is not None:
+            sharded = _check_run_axis(
+                mesh, axis, sample_axis, n_starts, n_bound_samples,
+                'multistart partitions starts', 'n_starts')
 
-        def run_source(k, dev):
-            g = torch.Generator(device=dev).manual_seed(seeds[k])
-            opt = (objective_and_grad.make_draws(g, n_iters, dtype)
-                   if presampled else g)
-            bound = (philox_seed(g) if sharded else
-                     var_family.base_sample(g, n_bound_samples, dtype))
-            return opt, bound
+            def run_source(k, dev):
+                g = torch.Generator(device=dev).manual_seed(seeds[k])
+                opt = (objective_and_grad.make_draws(g, n_iters, dtype)
+                       if presampled else g)
+                bound = (philox_seed(g) if sharded else
+                         var_family.base_sample(g, n_bound_samples, dtype))
+                return opt, bound
 
-        out = _batch_mesh(objective_and_grad, has_log_norm, var_family,
-                          log_density, n_iters, window, lr_tables, epsilon,
-                          alpha, n_bound_samples, init_params, run_source,
-                          mesh, axis, sample_axis, sharded)
+            out = _batch_mesh(objective_and_grad, has_log_norm, var_family,
+                              log_density, n_iters, window, lr_tables,
+                              epsilon, alpha, n_bound_samples, init_params,
+                              run_source, mesh, axis, sample_axis, sharded)
+        else:
+            out = _batch_core(objective_and_grad, has_log_norm, var_family,
+                              log_density, n_iters, window, lr_tables,
+                              epsilon, alpha,
+                              _tail_len(n_bound_samples, 1.0), init_params,
+                              opt_draws, bound_draws)
         return _finalize_batch(out, n_bound_samples, alpha, log_norm_bound)
-    generators = [torch.Generator(device=device).manual_seed(s)
-                  for s in seeds]
-    opt_draws = (stack_draws([objective_and_grad.make_draws(g, n_iters,
-                                                             dtype)
-                               for g in generators])
-                 if presampled else generators)
-    bound_draws = stack_draws([var_family.base_sample(g, n_bound_samples,
-                                                       dtype)
-                                for g in generators])
-    out = _batch_core(objective_and_grad, has_log_norm, var_family,
-                      log_density, n_iters, window, lr_tables, epsilon,
-                      alpha, _tail_len(n_bound_samples, 1.0), init_params,
-                      opt_draws, bound_draws)
-    return _finalize_batch(out, n_bound_samples, alpha, log_norm_bound)
 
 
 def _sweep_rates(learning_rates, learning_rate_ends=None):

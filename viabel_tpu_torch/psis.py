@@ -13,6 +13,8 @@ tail fit deserves a kernel is a question for measurement.
 import numpy as np
 import torch
 
+from ._trace import span
+
 __all__ = ['psislw', 'psisloo', 'gpdfit', 'gpinv', 'sumlogs',
            'weighted_moments']
 
@@ -26,11 +28,12 @@ def weighted_moments(samples, slw):
     ``samples`` (n, d) under log-weights ``slw`` (n,)
     (viabel_tpu/psis.py:45-64).  The products run in full float32 or
     float64: the package forbids TF32 (`_device.fp32_matmul_policy`)."""
-    w = torch.exp(slw - torch.max(slw))
-    w = w / torch.sum(w)
-    mean = w @ samples
-    c = samples - mean[None, :]
-    return mean, (w[:, None] * c).T @ c
+    with span('moments', samples.device):
+        w = torch.exp(slw - torch.max(slw))
+        w = w / torch.sum(w)
+        mean = w @ samples
+        c = samples - mean[None, :]
+        return mean, (w[:, None] * c).T @ c
 
 
 def _tail_len(n, Reff):
@@ -98,37 +101,38 @@ def _psislw_1d(x, tail_len):
     weights are extracted (`torch.topk`) and only the tail is written back.
     Tied weights at the tail boundary may take their quantiles in another
     order than ``lax.top_k`` gives them (equally valid)."""
-    dtype = x.dtype
-    cutoffmin = float(np.log(torch.finfo(dtype).tiny))
+    with span('psis', x.device):
+        dtype = x.dtype
+        cutoffmin = float(np.log(torch.finfo(dtype).tiny))
 
-    x = x - torch.max(x)
-    top_vals, top_idx = torch.topk(x, tail_len + 1)
-    xcutoff = torch.clamp(top_vals[tail_len], min=cutoffmin)
-    tail_slice = torch.flip(top_vals[:tail_len], (0,))
-    tail_idx = torch.flip(top_idx[:tail_len], (0,))
-    mask = tail_slice > xcutoff
-    n2 = torch.sum(mask)
+        x = x - torch.max(x)
+        top_vals, top_idx = torch.topk(x, tail_len + 1)
+        xcutoff = torch.clamp(top_vals[tail_len], min=cutoffmin)
+        tail_slice = torch.flip(top_vals[:tail_len], (0,))
+        tail_idx = torch.flip(top_idx[:tail_len], (0,))
+        mask = tail_slice > xcutoff
+        n2 = torch.sum(mask)
 
-    expxcutoff = torch.exp(xcutoff)
-    exceedances = torch.exp(tail_slice) - expxcutoff
+        expxcutoff = torch.exp(xcutoff)
+        exceedances = torch.exp(tail_slice) - expxcutoff
 
-    k, sigma = gpdfit(exceedances, mask, n2)
-    khat = torch.where(n2 <= 4, torch.full_like(k, float('inf')), k)
-    do_smooth = (n2 > 4) & (k >= _K_MIN) & torch.isfinite(k)
+        k, sigma = gpdfit(exceedances, mask, n2)
+        khat = torch.where(n2 <= 4, torch.full_like(k, float('inf')), k)
+        do_smooth = (n2 > 4) & (k >= _K_MIN) & torch.isfinite(k)
 
-    pos_in_valid = (torch.arange(tail_len, device=x.device)
-                    - (tail_len - n2))
-    sti = ((pos_in_valid.to(dtype) + 0.5)
-           / torch.clamp(n2, min=1).to(dtype))
-    sti = torch.clamp(sti, 1e-12, 1 - 1e-12)
-    qq = torch.log(gpinv(sti, k, sigma) + expxcutoff)
-    new_tail = torch.where(do_smooth & mask, qq, tail_slice)
+        pos_in_valid = (torch.arange(tail_len, device=x.device)
+                        - (tail_len - n2))
+        sti = ((pos_in_valid.to(dtype) + 0.5)
+               / torch.clamp(n2, min=1).to(dtype))
+        sti = torch.clamp(sti, 1e-12, 1 - 1e-12)
+        qq = torch.log(gpinv(sti, k, sigma) + expxcutoff)
+        new_tail = torch.where(do_smooth & mask, qq, tail_slice)
 
-    out = x.clone()
-    out[tail_idx] = new_tail
-    out = torch.where(do_smooth, torch.clamp(out, max=0.0), out)
-    out = out - torch.logsumexp(out, dim=0)
-    return out, khat
+        out = x.clone()
+        out[tail_idx] = new_tail
+        out = torch.where(do_smooth, torch.clamp(out, max=0.0), out)
+        out = out - torch.logsumexp(out, dim=0)
+        return out, khat
 
 
 def psislw(lw, Reff=1.0):

@@ -273,11 +273,25 @@ result line:
     launched (protocol 2 and the IA run only ``philox_normal``, their
     chains' init noise); the multistart's best PSIS-corrected mean within
     0.25 of the NUTS truth; ``pod_layout``'s HMC chains at R-hat 1.01 or
-    less and its multistart's best d2 below that of q at the start.
+    less and its multistart's best d2 below that of q at the start;
+24. the KLVI kernel of the mean-field families on the eight-schools
+    densities (``ops.klvi_mf``): against its plain version, the autograd
+    objective, for both families, CP and NCP, one run and a batch of 8
+    (float64 within 1e-12, float32 within 1e-5 relative); its times at
+    (K 1, n_mc 100, d 10) and K 8 (``ms``, ``device_ms`` and
+    ``graph_device_ms``, hot in L2 in a replayed graph) beside its bound
+    and the autograd body's time; then ``validated_vi``, an 8-start
+    ``validated_vi_multistart`` and a 3-rate ``validated_vi_sweep`` on
+    eight-schools CP with mean-field t(40) KLVI (2000 iterations each,
+    float32), each requiring the kernel launched once an iteration, all
+    but the window's from graph replays (phase 2 requires it too).  It
+    runs right after phase 12, before the long traces of phases 13-15,
+    after which the profiler's traces of single launches come back
+    without kernel records.
 
 The line before the last is a JSON object with one entry per kernel:
 route, source, the TPU kernel it replaces, launches on the paths of phases
-2, 6, 10, 13, 14, 15 (a) and (b), 17, 18, 19, 21, 22 and 23 (summed), the
+2, 6, 10, 13, 14, 15 (a) and (b), 17, 18, 19, 21, 22, 23 and 24 (summed), the
 float32 max abs error, its time by
 events around the call (``ms``) and on the card (``device_ms``), the plain
 version's time, its bound (the larger of bytes over 3.35 TB/s and
@@ -450,11 +464,15 @@ REPLACES = {
     'adagrad_step':
         'viabel_tpu/optimizers.py:201-230 (_make_adagrad_step, the body of '
         'the compiled lax.scan; no Pallas kernel)',
+    'klvi_mf':
+        'viabel_tpu/objectives.py:76-102 (black_box_klvi\'s '
+        'jax.value_and_grad, in the compiled lax.scan; no Pallas kernel)',
 }
 SOURCE = {'transform_score_partials': 'lw_stats.cu', 'lw_partials':
           'lw_stats.cu', 'combine_partials': 'lw_stats.cu',
           'gaussian_sample_score_partials': 'gaussian_lw.cu',
-          'philox_normal': 'gaussian_lw.cu', 'adagrad_step': 'adagrad.cu'}
+          'philox_normal': 'gaussian_lw.cu', 'adagrad_step': 'adagrad.cu',
+          'klvi_mf': 'klvi_mf.cu'}
 # device kernel names in nvcc's output -> the wrapper that launches them
 _MANGLED = (('LoadedDraws', 'transform_score_partials'),
             ('PhiloxDraws', 'gaussian_sample_score_partials'),
@@ -462,7 +480,8 @@ _MANGLED = (('LoadedDraws', 'transform_score_partials'),
             ('combine_partials_kernel', 'combine_partials'),
             ('philox_normal_kernel', 'philox_normal'),
             ('philox_bits_kernel', 'philox_bits'),
-            ('adagrad_step_kernel', 'adagrad_step'))
+            ('adagrad_step_kernel', 'adagrad_step'),
+            ('klvi_mf_kernel', 'klvi_mf'))
 # the wrapper -> the part of its device kernel's name that a trace shows
 KERNEL_KEY = {wrapper: key for key, wrapper in _MANGLED}
 FLOOR_KEY = 'launch_floor_kernel'  # the empty kernel of csrc/adagrad.cu
@@ -634,18 +653,22 @@ def check_close(name, got, want, atol, rtol):
 
 
 def reset_launches():
-    from viabel_tpu_torch.ops import adagrad, gaussian_lw, lw_stats
+    from viabel_tpu_torch.ops import adagrad, gaussian_lw, klvi_mf, lw_stats
     lw_stats.reset_launches()
     gaussian_lw.reset_launches()
     adagrad.reset_launches()
+    klvi_mf.reset_launches()
 
 
 def read_launches():
-    """Every kernel's launches, and under ``'adagrad_step (replayed)'`` the
-    step kernel's executions that came from graph replays."""
-    from viabel_tpu_torch.ops import adagrad, gaussian_lw, lw_stats
+    """Every kernel's launches, and under ``'adagrad_step (replayed)'`` and
+    ``'klvi_mf (replayed)'`` the executions that came from graph
+    replays."""
+    from viabel_tpu_torch.ops import adagrad, gaussian_lw, klvi_mf, lw_stats
     return {**lw_stats.launches, **gaussian_lw.launches, **adagrad.launches,
-            'adagrad_step (replayed)': adagrad.replayed['adagrad_step']}
+            **klvi_mf.launches,
+            'adagrad_step (replayed)': adagrad.replayed['adagrad_step'],
+            'klvi_mf (replayed)': klvi_mf.replayed['klvi_mf']}
 
 
 def require_adagrad_steps(launches, runs, path):
@@ -740,8 +763,8 @@ def main_path(vt, model, fam):
         if not is_finite(value):
             raise AssertionError('{} is not finite: {}'.format(name, value))
     require_launched(launches, ('transform_score_partials', 'lw_partials',
-                                'combine_partials', 'adagrad_step'),
-                     'eight-schools')
+                                'combine_partials', 'adagrad_step',
+                                'klvi_mf'), 'eight-schools')
     require_adagrad_steps(launches, [N_ITERS], 'eight-schools')
     return out, launches
 
@@ -4059,6 +4082,182 @@ def phase23(vt):
     return total
 
 
+# phase 24: the KLVI kernel of the mean-field families on eight schools
+KLVI_RUNS = (1, 8)        # runs a launch, in its checks and times
+KLVI_ITERS = 2000         # each fit of its paths
+# each path's fitted parameters on the kernel against the same path through
+# the autograd body on the same draws, float32, relative to their norm (the
+# card tests hold 300 iterations to 1e-5)
+KLVI_PATH_RTOL = 1e-5
+# operations a draw, counted from csrc/klvi_mf.cu as OPS_K1 is: the
+# transform 20, the CP density's value 137 and its gradient ~60 (8 schools
+# of 6, the two scalars ~12), the sums 30
+OPS_KLVI_DRAW = 247
+
+
+def klvi_check(vt, family, model_name, K, dtype):
+    """The kernel against its plain version (the autograd objective) at K
+    runs on the counters' rows: max relative errors of the value and of
+    the gradient (over its norm); float64 within 1e-12, float32 1e-5."""
+    from viabel_tpu_torch.models import (eight_schools_cp_model,
+                                         eight_schools_ncp_model)
+    from viabel_tpu_torch.ops import klvi_mf as kops
+
+    model = (eight_schools_cp_model() if model_name == 'cp'
+             else eight_schools_ncp_model())
+    fam = (vt.mean_field_t_variational_family(10, 40) if family == 'mf_t'
+           else vt.mean_field_gaussian_variational_family(10))
+    obj = vt.black_box_klvi(fam, model, N_MC, presampled=True)
+    g = card_generator(40 + K)
+    block = torch.stack([obj.make_draws(g, 4, dtype) for _ in range(K)])
+    param = torch.cat([torch.randn((K, 10), generator=g, device='cuda',
+                                   dtype=dtype),
+                       -0.5 + 0.3 * torch.randn((K, 10), generator=g,
+                                                device='cuda', dtype=dtype)],
+                      dim=1)
+    counter = torch.arange(K, device='cuda') % 4
+    if K == 1:
+        param, block, counter = param[0], block[0], counter.clone()
+    value, grad = obj.fused.bind(param, block, counter)()
+    want_v, want_g = kops.klvi_mf_plain(obj.objective, param, block, counter)
+    err_v = float(((value - want_v).abs() / want_v.abs()).max())
+    diff = (grad - want_g).reshape(K, -1).double()
+    err_g = float((diff.norm(dim=1) / want_g.reshape(K, -1).double().norm(
+        dim=1)).max())
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    log('  klvi_mf {} {} K {} {}: value rel err {:.3e}, gradient rel err '
+        '{:.3e} (tolerance {})'.format(family, model_name, K,
+                                       str(dtype).split('.')[1], err_v,
+                                       err_g, tol))
+    if not (err_v <= tol and err_g <= tol):
+        raise AssertionError('klvi_mf is outside its tolerance')
+    return max(float((value - want_v).abs().max()),
+               float((grad - want_g).abs().max()))
+
+
+def klvi_timed(vt, K, err):
+    """The kernel's times at K runs (n_mc 100, d 10, float32, the
+    eight-schools CP mean-field t fit's shape): `timed_row` (events, and
+    the trace with L2 flushed), ``graph_device_ms`` (hot in L2 in a
+    replayed graph, as the fits find it) and the plain version's (the
+    autograd body) beside the bound of its bytes and operations."""
+    from viabel_tpu_torch.models import eight_schools_cp_model
+    from viabel_tpu_torch.ops import klvi_mf as kops
+
+    model = eight_schools_cp_model()
+    fam = vt.mean_field_t_variational_family(10, 40)
+    obj = vt.black_box_klvi(fam, model, N_MC, presampled=True)
+    g = card_generator(60 + K)
+    block = torch.stack([obj.make_draws(g, 8, torch.float32)
+                         for _ in range(K)])
+    param = torch.zeros((K, 20), device='cuda')
+    counter = torch.full((K,), 3, dtype=torch.int64, device='cuda')
+    evaluate = obj.fused.bind(param, block, counter)
+    # bytes: the row of draws, the parameter, y and sigma and the counter
+    # read, the value and the gradient written, each run
+    nbytes = K * (4 * (N_MC * 10 + 20 + 16 + 21) + 8)
+    nops = K * N_MC * OPS_KLVI_DRAW
+    label = 'klvi_mf (K = {}, n_mc {}, d 10)'.format(K, N_MC)
+    row = timed_row('klvi_mf', evaluate, lambda: kops.klvi_mf_plain(
+        obj.objective, param, block, counter), nbytes, nops, err, K,
+        label=label)
+    row['graph_device_ms'] = graph_device_ms(evaluate, KERNEL_KEY['klvi_mf'])
+    row['K'] = K
+    log('{}: {} ms on the card hot in L2 inside a replayed graph'.format(
+        label, fmt_ms(row['graph_device_ms'])))
+    return row
+
+
+def param_rows(out):
+    """A result's fitted parameters, one row a run, float64 on the host."""
+    param = out['opt_param']
+    if isinstance(param, (list, tuple)):
+        param = torch.stack([torch.as_tensor(p) for p in param])
+    return param.detach().double().cpu().reshape(-1, param.shape[-1])
+
+
+def klvi_mf_part(vt):
+    """Phase 24: the KLVI kernel of the mean-field families on the
+    eight-schools densities (`ops.klvi_mf`).  (a) Against its plain
+    version, the autograd objective: both families, CP and NCP, one run
+    and a batch of 8, float64 within 1e-12 and float32 within 1e-5
+    relative.  (b) Its times at K 1 and 8 (`klvi_timed`).  (c) The paths
+    that take it, each with every launch count set to 0 before it and
+    read after: `validated_vi`, an 8-start `validated_vi_multistart` and a
+    3-rate `validated_vi_sweep` on eight-schools CP with mean-field t(40)
+    KLVI, KLVI_ITERS iterations each, float32; the kernel must have
+    launched once an iteration, all but the window's from graph replays,
+    and every khat and d2 be finite; then the same path through the
+    autograd body (the objective's ``fused`` taken off) on the same
+    generator, whose fitted parameters the kernel's must match within
+    KLVI_PATH_RTOL of their norm, run by run.  Returns the row (the K 1
+    time, the K 8 time under ``instances``) and each path's launches."""
+    from viabel_tpu_torch.models import eight_schools_cp_model
+
+    err = 0.0
+    for family in ('mf_t', 'mf_gaussian'):
+        for model_name in ('cp', 'ncp'):
+            for K in KLVI_RUNS:
+                for dtype in (torch.float64, torch.float32):
+                    e = klvi_check(vt, family, model_name, K, dtype)
+                    if dtype == torch.float32:
+                        err = max(err, e)
+    rows = [klvi_timed(vt, K, err) for K in KLVI_RUNS]
+    row = dict(rows[0], instances=rows[1:])
+
+    model = eight_schools_cp_model()
+    fam = vt.mean_field_t_variational_family(10, 40)
+    init = torch.zeros(20, device='cuda')
+    kw = dict(n_bound_samples=100_000, learning_rate=0.01, device='cuda')
+    path_launches = []
+    for name, call in (
+            ('validated_vi', lambda obj: vt.validated_vi(
+                model, fam, init, KLVI_ITERS, objective_and_grad=obj,
+                learning_rate_end=0.001, generator=card_generator(71),
+                **kw)),
+            ('multistart', lambda obj: vt.validated_vi_multistart(
+                model, fam, init, KLVI_ITERS, objective_and_grad=obj,
+                n_starts=8, perturb_scale=0.1, learning_rate_end=0.001,
+                generator=card_generator(72), **kw)),
+            ('sweep', lambda obj: vt.validated_vi_sweep(
+                model, fam, init, KLVI_ITERS, objective_and_grad=obj,
+                learning_rates=[0.005, 0.01, 0.02],
+                n_bound_samples=100_000, generator=card_generator(73),
+                device='cuda'))):
+        fused = vt.black_box_klvi(fam, model, N_MC, presampled=True)
+        autograd = vt.black_box_klvi(fam, model, N_MC, presampled=True)
+        autograd.fused = None
+        reset_launches()
+        t, out = wall(lambda: call(fused))
+        launches = read_launches()
+        khat = np.atleast_1d(np.asarray(out['khat'], dtype=float))
+        bounds = out['bounds'] if isinstance(out['bounds'], list) \
+            else [out['bounds']]
+        d2 = np.asarray([float(b['d2']) for b in bounds])
+        log('klvi_mf on the {} path ({} iterations, float32): {:.3f} s, '
+            'khat {}, d2 {}; launches {}'.format(
+                name, KLVI_ITERS, t, khat.tolist(), d2.tolist(), launches))
+        if not (np.all(np.isfinite(khat)) and np.all(np.isfinite(d2))):
+            raise AssertionError('{}: a khat or d2 is not finite'.format(name))
+        require_launched(launches, ('klvi_mf', 'adagrad_step'), name)
+        got = launches['klvi_mf'], launches['klvi_mf (replayed)']
+        if got != (KLVI_ITERS, KLVI_ITERS - WINDOW):
+            raise AssertionError('{}: klvi_mf ran {} times ({} replayed) for '
+                                 '{} iterations'.format(name, got[0], got[1],
+                                                        KLVI_ITERS))
+        t_plain, plain = wall(lambda: call(autograd))
+        got, want = param_rows(out), param_rows(plain)
+        err = float(((got - want).norm(dim=1) / want.norm(dim=1)).max())
+        log('  {}: fitted parameters off the autograd body\'s on the same '
+            'draws by {:.3e} relative (limit {}; autograd {:.3f} s)'.format(
+                name, err, KLVI_PATH_RTOL, t_plain))
+        if not err <= KLVI_PATH_RTOL:
+            raise AssertionError('{}: the fit on klvi_mf is {} off the '
+                                 'autograd fit'.format(name, err))
+        path_launches.append(launches)
+    return row, path_launches
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -4103,6 +4302,8 @@ def main():
     # profiler's traces come back without kernel records
     rows['adagrad_step']['instances'] = batched_step_check(vt)
     phases_done('12')
+    rows['klvi_mf'], klvi_launches = klvi_mf_part(vt)
+    phases_done('24 (before the long traces)')
     path_launches = [launches, r_launches, e_launches, multistart_path(vt)]
     phases_done('13')
     path_launches += [sweep_path(vt), large_d_path(vt)]
@@ -4118,11 +4319,12 @@ def main():
     phases_done('22')
     path_launches.append(phase23(vt))
     phases_done('23')
+    path_launches.extend(klvi_launches)
 
     kernels = [dict(name=name, route='cuda',
                     source='viabel_tpu_torch/csrc/' + SOURCE[name],
                     replaces=REPLACES[name],
-                    launches=sum(p[name] for p in path_launches),
+                    launches=sum(p.get(name, 0) for p in path_launches),
                     max_abs_err=rows[name]['max_abs_err'],
                     ms=rows[name]['ms'], device_ms=rows[name]['device_ms'],
                     plain_ms=rows[name]['plain_ms'],

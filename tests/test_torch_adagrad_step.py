@@ -435,6 +435,7 @@ def test_graph_run_matches_eager_run(cuda, method, depth, monkeypatch):
     `depth` iterations replayed three times and, at depth 4, a remainder
     of one-iteration graphs."""
     monkeypatch.setattr(optimizers, '_GRAPH_ITERS', depth)
+    monkeypatch.setattr(optimizers, '_FUSED_GRAPH_ITERS', depth)
     n_iters, n_mc = WINDOW + 3 * depth + 5, 20
     fam = pt.mean_field_t_variational_family(10, 40)
     if method == 'KLVI':

@@ -313,11 +313,18 @@ def test_spans_share_the_device_clock(cuda):
     samples) on the card: every device operation starts inside
     ``vt.fit``; what starts inside ``vt.draws`` ends before it closes (so
     no queued draw is counted in ``vt.optimize``); ``vt.optimize`` closes
-    after the last replayed kernel ends; every graph launch (one an
-    iteration past the window) is inside ``vt.replay`` and launched one
-    iteration's kernels, the same number each."""
+    after the last replayed kernel ends; every graph launch (one for each
+    graph's worth of iterations past the window: the objective's
+    hand-written body captures `_FUSED_GRAPH_ITERS` iterations a graph,
+    the remainder one a graph) is inside ``vt.replay`` and launched its
+    iterations' kernels, the same number an iteration: two (that body and
+    the step), or some hundred operations for a body through autograd."""
     n_iters, window = 300, 10
     model, fam, obj, init = _setup(cuda, n_mc=100)
+    depth = (optimizers._FUSED_GRAPH_ITERS if obj.fused is not None
+             else optimizers._GRAPH_ITERS)
+    full, rest = divmod(n_iters - window, depth)
+    n_graphs = (full > 0) + (rest > 0)
     kw = dict(objective_and_grad=obj, n_bound_samples=2_500_000,
               window=window, learning_rate=0.01, learning_rate_end=0.001,
               epsilon=0.1, device=cuda)
@@ -328,13 +335,13 @@ def test_spans_share_the_device_clock(cuda):
     with count_compilations() as n:
         _, recs = _profiled(lambda: pt.validated_vi(
             model, fam, init, n_iters, generator=g, **kw), cuda=True)
-    assert n[0] == 1
+    assert n[0] == n_graphs
     assert aops.launches['adagrad_step'] - before[0] == n_iters
     assert aops.replayed['adagrad_step'] - before[1] == n_iters - window
     spans = _spans(recs)
     names = collections.Counter(r[0] for r in spans)
     assert names['vt.fit'] == names['vt.optimize'] == 1
-    assert names['vt.eager'] == names['vt.capture'] == 1
+    assert names['vt.eager'] == 1 and names['vt.capture'] == n_graphs
     assert names['vt.replay'] == 1
     _assert_nested(spans)
     by = {r[0]: r for r in spans}
@@ -347,8 +354,9 @@ def test_spans_share_the_device_clock(cuda):
     late_draw = max(r[3] - draws[3] for r in in_draws)
     # the replayed operations (kernels and the graph's copies): those a
     # cudaGraphLaunch launched, each such call inside vt.replay
-    launches = [r for r in recs if r[0] == 'cudaGraphLaunch']
-    assert len(launches) == n_iters - window
+    launches = sorted((r for r in recs if r[0] == 'cudaGraphLaunch'),
+                      key=lambda r: r[2])
+    assert len(launches) == full + rest
     assert all(_inside(r, replay) for r in launches)
     graph = {r[4] for r in launches}
     replayed = [r for r in device if r[4] in graph]
@@ -365,5 +373,13 @@ def test_spans_share_the_device_clock(cuda):
     assert all(r[2] >= replay[2] for r in replayed)
     assert late_step <= CLOCK_SLACK_NS
     assert len(per_launch) == len(kernels) == len(launches)
-    assert len(set(per_launch.values())) == len(set(kernels.values())) == 1
-    assert 20 <= len(replayed) // len(launches) <= 400
+    # the first `full` launches replay `depth` iterations, the rest one
+    steps = [depth] * full + [1] * rest
+    each = {(per_launch[r[4]] / k, kernels[r[4]] / k)
+            for r, k in zip(launches, steps)}
+    assert len(each) == 1
+    ops_each, kernels_each = each.pop()
+    if obj.fused is not None:   # the hand-written body and the step
+        assert kernels_each == 2 and ops_each < 20
+    else:                       # the body through autograd
+        assert 20 <= ops_each <= 400

@@ -19,7 +19,10 @@ iteration (``iteration_draws(generator, dtype)``, the ``(n_samples,
 
 Every objective carries ``has_log_norm``, and ``host_callback``: whether
 its log density is a host-side one (`models.external`), which the
-optimizers never capture in a CUDA graph.  The KLVI forms carry their pure
+optimizers never capture in a CUDA graph.  Presampled `black_box_klvi` of
+a mean-field family on an eight-schools density also carries ``fused``,
+the hand-written body that the optimizers run in its place on the card
+(`ops.klvi_mf`; None elsewhere).  The KLVI forms carry their pure
 scalar ``objective(var_param, draws)``, whose gradient the batched
 optimizers take with ``torch.func.grad_and_value``; the CHIVI forms carry
 ``compute_log_weights`` and are themselves `torch.func`-transformable (the
@@ -30,6 +33,7 @@ import torch
 
 from .models.external import is_host_callback
 from .ops.gaussian_lw import philox_normal
+from .ops.klvi_mf import fused_klvi
 
 __all__ = ['black_box_klvi', 'black_box_klvi_pd', 'black_box_klvi_pd2',
            'black_box_chivi', 'black_box_chivi_neff',
@@ -178,7 +182,11 @@ def black_box_klvi(var_family, log_density, n_samples, presampled=False):
     (viabel_tpu/objectives.py:76-102).
 
     `log_density` maps a batch ``(n, d)`` to ``(n,)`` log densities (use
-    `vectorize_log_density` for a one-point density).
+    `vectorize_log_density` for a one-point density).  Presampled, on a
+    mean-field family and an eight-schools `models.Model`, the objective
+    carries ``fused`` (`ops.klvi_mf.fused_klvi`): the value and gradient
+    in one kernel, which the adagrad runs take on the card in place of
+    this autograd body, its plain version.
     """
 
     def objective(var_param, rng_or_draws):
@@ -188,8 +196,12 @@ def black_box_klvi(var_family, log_density, n_samples, presampled=False):
                        + torch.mean(log_density(samples)))
         return -lower_bound
 
-    return _klvi_objective(objective, presampled, var_family, n_samples,
-                           log_density)
+    objective_and_grad = _klvi_objective(objective, presampled, var_family,
+                                         n_samples, log_density)
+    objective_and_grad.fused = (fused_klvi(objective, var_family,
+                                           log_density)
+                                if presampled else None)
+    return objective_and_grad
 
 
 def black_box_klvi_pd(var_family, log_density, n_samples, presampled=False):

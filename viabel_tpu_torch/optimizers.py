@@ -10,7 +10,12 @@ the device; on the card a presampled objective's run is that body captured
 in a CUDA graph and replayed, so no iteration waits for the host.  A batch
 of K runs (`_adagrad_runs`, the batched pipelines' optimizer) is the same
 body with a leading run axis: ``torch.func.vmap`` of the objective's
-gradient and one launch of the step kernel for every run.  The IA
+gradient and one launch of the step kernel for every run.  Where an
+objective carries a hand-written body (``fused``: presampled KLVI of a
+mean-field family on an eight-schools density, `ops.klvi_mf`) and it
+engages on the card, an iteration is that one kernel and the step, for
+one run or the whole batch, and a graph captures `_FUSED_GRAPH_ITERS`
+iterations.  The IA
 optimizers' chain step runs eagerly: a Python loop over iterations, the
 learning rate a host float, nothing waiting for the device.  Their chains
 are a batch dimension: one batched step an iteration through
@@ -45,6 +50,7 @@ from .ops.adagrad import adagrad_step
 from .ops.adagrad import new_state as new_adagrad_state
 from .ops.adagrad import replay as adagrad_replay
 from .ops.gaussian_lw import philox_normal
+from .ops.klvi_mf import count_replays as count_fused_replays
 from .ops.philox import fold_in, philox_seed
 
 __all__ = ['learning_rate_schedule', 'adagrad_optimize',
@@ -93,6 +99,7 @@ def _wrap_objective(objective_and_grad, has_log_norm):
             return value, grad, None
     obj.presampled = getattr(objective_and_grad, 'presampled', False)
     obj.host_callback = getattr(objective_and_grad, 'host_callback', False)
+    obj.fused = getattr(objective_and_grad, 'fused', None)
     return obj
 
 
@@ -135,8 +142,16 @@ def _progress(n_iters, values):
 # measurement (tools/graph_depth.py, PERF.md): at 2000 iterations one
 # iteration a graph ran fastest, since capturing an iteration costs the
 # host what running it eagerly does and a replay costs less than the card
-# spends on it; a one-iteration graph takes any remainder
+# spends on it; a one-iteration graph takes any remainder.  This holds for
+# a body that runs through autograd (some hundred kernels an iteration)
 _GRAPH_ITERS = 1
+# the same for a body of two hand-written kernels (an objective's `fused`
+# kernel and the step, some 5 us of the card's time an iteration): one
+# iteration a graph leaves the card waiting on the host's replay loop, and
+# capturing costs the host some 80 us an iteration, once a run.  Measured
+# at 10000 iterations (tools/graph_depth.py, PERF.md): 8 to 16 iterations
+# a graph ran fastest, 4 and 32 some 2-7 % slower, 1 about a third slower
+_FUSED_GRAPH_ITERS = 8
 
 
 def _draw_row(draws, counter, batched):
@@ -160,52 +175,80 @@ def _draws_of(obj, state, source, i):
     return source.at(i)
 
 
-def _adagrad_iteration(obj, state, source, i):
+def _iteration_objective(obj, state, source):
+    """``(objective, fused)``: ``objective(i)``, the value, gradient and
+    log-norm of `obj` at ``state.param`` at iteration `i`, and whether it
+    is the objective's hand-written body.  That body (``obj.fused``, see
+    `ops.klvi_mf`) is taken where it engages on the state's parameter and
+    the whole presampled block `source`: it reads the iteration's row
+    itself from the device counter and writes into buffers bound here,
+    once a run.  Any other objective runs ``obj`` on `_draws_of` the
+    iteration (through autograd)."""
+    fused = getattr(obj, 'fused', None)
+    if fused is not None and fused.engages(state.param, source):
+        evaluate = fused.bind(state.param, source, state.counter)
+
+        def objective(i):
+            value, grad = evaluate()
+            return value, grad, None
+
+        return objective, True
+
+    def objective(i):
+        return obj(state.param, _draws_of(obj, state, source, i))
+
+    return objective, False
+
+
+def _adagrad_iteration(objective, state, i):
     """Adagrad iteration `i` on the device-side `state`
-    (`ops.adagrad.AdagradState`, one run or a batch): the objective's
-    value and gradient at ``state.param``, cast to its dtype, then the step
-    kernel, which reads the iteration from the device counter.  Nothing in
-    it waits for the device or decides on the host, so the same body runs
-    eagerly and under capture."""
-    value, grad, log_norm = obj(state.param, _draws_of(obj, state, source, i))
+    (`ops.adagrad.AdagradState`, one run or a batch): the value and
+    gradient ``objective(i)`` at ``state.param``, cast to its dtype, then
+    the step kernel, which reads the iteration from the device counter.
+    Nothing in it waits for the device or decides on the host, so the same
+    body runs eagerly and under capture."""
+    value, grad, log_norm = objective(i)
     dtype = state.param.dtype
     adagrad_step(state, grad.to(dtype), value.to(dtype),
                  None if log_norm is None else log_norm.to(dtype))
 
 
-def _adagrad_eager(obj, state, source, start, iters, report=None):
+def _adagrad_eager(objective, state, start, iters, report=None):
     """Iterations ``start .. start + iters - 1`` of the body, one launch
     after another, each followed by ``report(i)`` when given."""
     for i in range(start, start + iters):
-        _adagrad_iteration(obj, state, source, i)
+        _adagrad_iteration(objective, state, i)
         if report is not None:
             report(i)
 
 
-def _adagrad_graph(obj, state, source, start, iters, window, report=None):
+def _adagrad_graph(objective, fused, state, start, iters, window,
+                   report=None):
     """Iterations ``start .. start + iters - 1`` of the body of a
     presampled objective on the card: those before `window` eagerly on a
     side stream (real iterations, which also warm up autograd's and the
     allocator's state and fill the model's device data cache; a run that
-    starts past the window evaluates the objective once instead and
-    discards the result), then the body captured `_GRAPH_ITERS` times in
-    one CUDA graph and once in another, and those graphs replayed until the
-    iterations are done, ``report(i)`` after each.  A failed capture
-    raises."""
+    starts past the window evaluates an autograd body once instead and
+    discards the result; a `fused` body, its buffers bound, needs none),
+    then the body captured `_GRAPH_ITERS` times (`_FUSED_GRAPH_ITERS` for
+    a `fused` body) in one CUDA graph and once in another, and those
+    graphs replayed until the iterations are done, ``report(i)`` after
+    each.  A failed capture raises."""
     device = state.param.device
     main = torch.cuda.current_stream(device)
     side = torch.cuda.Stream(device)
     side.wait_stream(main)
     warm = min(max(window - start, 0), iters)
     with span('eager'), torch.cuda.stream(side):
-        _adagrad_eager(obj, state, source, start, warm, report)
-        if warm == 0 and iters:
-            obj(state.param, _draws_of(obj, state, source, start))
-    full, rest = divmod(iters - warm, _GRAPH_ITERS)
+        _adagrad_eager(objective, state, start, warm, report)
+        if warm == 0 and iters and not fused:
+            objective(start)
+    depth = _FUSED_GRAPH_ITERS if fused else _GRAPH_ITERS
+    full, rest = divmod(iters - warm, depth)
     graphs = []
-    for count, steps in ((full, _GRAPH_ITERS), (rest, 1)):
+    for count, steps in ((full, depth), (rest, 1)):
         if count:
-            graph = capture(lambda: _adagrad_eager(obj, state, source, 0,
+            graph = capture(lambda: _adagrad_eager(objective, state, 0,
                                                    steps), side)
             graphs.append((graph, steps, count))
     main.wait_stream(side)
@@ -214,6 +257,8 @@ def _adagrad_graph(obj, state, source, start, iters, window, report=None):
         for graph, steps, count in graphs:
             for _ in range(count):
                 adagrad_replay(graph, steps)
+                if fused:
+                    count_fused_replays(steps)
                 if report is not None:
                     for j in range(i, i + steps):
                         report(j)
@@ -254,10 +299,12 @@ def _advance(obj, state, source, start, iters, window, driver=None,
                          getattr(obj, 'host_callback', False),
                          getattr(obj, 'presampled', False))
     with span('optimize', device if pending is None else None):
+        objective, fused = _iteration_objective(obj, state, source)
         if driver == 'graph':
-            _adagrad_graph(obj, state, source, start, iters, window, report)
+            _adagrad_graph(objective, fused, state, start, iters, window,
+                           report)
         else:
-            _adagrad_eager(obj, state, source, start, iters, report)
+            _adagrad_eager(objective, state, start, iters, report)
         if pending is None:
             _check_ran(state.counter, start + iters)
         else:
@@ -422,7 +469,9 @@ def _batched_objective(objective_and_grad, has_log_norm):
     stopped cotangent (viabel_tpu/objectives.py:207-216), and its log-norm
     output is kept when `has_log_norm` (default: the objective's own
     flag), else None (the batched adagrad body: the step kernel takes
-    None as 0)."""
+    None as 0).  The step carries the objective's hand-written body
+    (``fused``, `ops.klvi_mf`), which the adagrad runs bind to their whole
+    block of draws where it engages."""
     if has_log_norm is None:
         has_log_norm = getattr(objective_and_grad, 'has_log_norm', False)
     if getattr(objective_and_grad, 'compute_log_weights', None) is not None:
@@ -447,12 +496,15 @@ def _batched_objective(objective_and_grad, has_log_norm):
 
     step.presampled = True
     step.host_callback = getattr(objective_and_grad, 'host_callback', False)
+    step.fused = getattr(objective_and_grad, 'fused', None)
     return step
 
 
 def _batched_step(objective_and_grad, has_log_norm):
     """`_batched_objective` with a log-norm of zeros where the objective
-    has none: the IA chains' step, whose history records the log-norms."""
+    has none: the IA chains' step, whose history records the log-norms.
+    It runs every objective through autograd, the hand-written bodies
+    included."""
     objective = _batched_objective(objective_and_grad, has_log_norm)
 
     def step(params, draws):

@@ -43,8 +43,10 @@ result line:
    adagrad run as a replayed graph) against the same on the CPU (plain
    versions), float64, on shared draws; then the graph run against the
    eager run of the same body on the card, float64, 2000 iterations, KLVI
-   and CHIVI, and 200 iterations of the large-d fit's KLVI (d = 100, P =
-   5150, whose step is a cluster launch) (1e-10 relative);
+   and CHIVI (each body its kernel, ``klvi_mf`` and ``chivi_mf``, so the
+   graph run is also held to the eager run of the autograd body), and 200
+   iterations of the large-d fit's KLVI (d = 100, P = 5150, whose step is
+   a cluster launch) (1e-10 relative);
 5. where its time goes, at steady state: ``validated_vi`` again, the
    bound pass's draws and fused score, PSIS; the optimizer alone (KLVI
    and CHIVI on eight-schools CP, 2000 iterations, float32) through the
@@ -92,7 +94,9 @@ result line:
     (10000 + 10000 iterations from ``[0, -1, 1, 1]``, examples/funnel.py
     ``--full``); every khat, d2, W2 and mean error must be finite, K1, K3,
     the combine and the step kernel must have launched (the step as in
-    phase 2), and each of the four khats must lie within |z| < 3 of the
+    phase 2), the eight-schools KLVI and CHIVI fits each through its
+    kernel (``klvi_mf``, ``chivi_mf``, as many launches each, all but the
+    window's from replays), and each of the four khats must lie within |z| < 3 of the
     JAX package's 16-seed band; then the card's busy share during 500
     CHIVI iterations through the graph (``torch.profiler``);
 11. K1 and K2 with the NCP and funnel densities against their plain
@@ -257,7 +261,9 @@ result line:
     reference; every row with a seed band (benchmarks/KHAT_NOISE.json)
     within its mean +- 4 sd, the full-rank khat within the JAX package's
     CPU float32 band (-0.9063 +- 0.0635, tools/jax_khat_band.py) and the
-    rooted-input W2 within 2 % of 2.72; (b) ``chivi_experiments`` at full
+    rooted-input W2 within 2 % of 2.72, the eight-schools fits' KLVI and
+    CHIVI each through its kernel as in phase 10; (b) ``chivi_experiments``
+    at full
     widths (N, k, df, n_mc, iterations, 1e6 bound samples; each HMC truth
     cut from 20000 samples to 4000, gated at R-hat 1.01), every stage
     beside benchmarks/CHIVI_PROTOCOLS.md's line: each KLVI stage and the
@@ -274,7 +280,7 @@ result line:
     chains' init noise); the multistart's best PSIS-corrected mean within
     0.25 of the NUTS truth; ``pod_layout``'s HMC chains at R-hat 1.01 or
     less and its multistart's best d2 below that of q at the start;
-24. the KLVI kernel of the mean-field families on the eight-schools
+24. (a) the KLVI kernel of the mean-field families on the eight-schools
     densities (``ops.klvi_mf``): against its plain version, the autograd
     objective, for both families, CP and NCP, one run and a batch of 8
     (float64 within 1e-12, float32 within 1e-5 relative); its times at
@@ -284,7 +290,14 @@ result line:
     ``validated_vi_multistart`` and a 3-rate ``validated_vi_sweep`` on
     eight-schools CP with mean-field t(40) KLVI (2000 iterations each,
     float32), each requiring the kernel launched once an iteration, all
-    but the window's from graph replays (phase 2 requires it too).  It
+    but the window's from graph replays (phase 2 requires it too), and
+    its fitted parameters within 1e-5 of the autograd body's; (b) the
+    CHIVI kernel (``ops.chivi_mf``) the same way at n_mc 500: value,
+    gradient and log-norm against the plain version in float64 on the
+    same inputs (float64 within 1e-12, float32 within 1e-5), its times at
+    (K 1, n_mc 500, d 10) and K 8, then ``validated_vi`` and the 8-start
+    multistart with presampled CHIVI (alpha 2), their fits within 1e-5 of
+    the autograd body's (phases 4, 10 and 23 (a) require it too).  It
     runs right after phase 12, before the long traces of phases 13-15,
     after which the profiler's traces of single launches come back
     without kernel records.
@@ -467,12 +480,15 @@ REPLACES = {
     'klvi_mf':
         'viabel_tpu/objectives.py:76-102 (black_box_klvi\'s '
         'jax.value_and_grad, in the compiled lax.scan; no Pallas kernel)',
+    'chivi_mf':
+        'viabel_tpu/objectives.py:177-222 (black_box_chivi\'s jax.vjp with '
+        'a stopped cotangent, in the compiled lax.scan; no Pallas kernel)',
 }
 SOURCE = {'transform_score_partials': 'lw_stats.cu', 'lw_partials':
           'lw_stats.cu', 'combine_partials': 'lw_stats.cu',
           'gaussian_sample_score_partials': 'gaussian_lw.cu',
           'philox_normal': 'gaussian_lw.cu', 'adagrad_step': 'adagrad.cu',
-          'klvi_mf': 'klvi_mf.cu'}
+          'klvi_mf': 'klvi_mf.cu', 'chivi_mf': 'klvi_mf.cu'}
 # device kernel names in nvcc's output -> the wrapper that launches them
 _MANGLED = (('LoadedDraws', 'transform_score_partials'),
             ('PhiloxDraws', 'gaussian_sample_score_partials'),
@@ -481,7 +497,8 @@ _MANGLED = (('LoadedDraws', 'transform_score_partials'),
             ('philox_normal_kernel', 'philox_normal'),
             ('philox_bits_kernel', 'philox_bits'),
             ('adagrad_step_kernel', 'adagrad_step'),
-            ('klvi_mf_kernel', 'klvi_mf'))
+            ('klvi_mf_kernel', 'klvi_mf'),
+            ('chivi_mf_kernel', 'chivi_mf'))
 # the wrapper -> the part of its device kernel's name that a trace shows
 KERNEL_KEY = {wrapper: key for key, wrapper in _MANGLED}
 FLOOR_KEY = 'launch_floor_kernel'  # the empty kernel of csrc/adagrad.cu
@@ -653,22 +670,26 @@ def check_close(name, got, want, atol, rtol):
 
 
 def reset_launches():
-    from viabel_tpu_torch.ops import adagrad, gaussian_lw, klvi_mf, lw_stats
+    from viabel_tpu_torch.ops import (adagrad, chivi_mf, gaussian_lw,
+                                      klvi_mf, lw_stats)
     lw_stats.reset_launches()
     gaussian_lw.reset_launches()
     adagrad.reset_launches()
     klvi_mf.reset_launches()
+    chivi_mf.reset_launches()
 
 
 def read_launches():
-    """Every kernel's launches, and under ``'adagrad_step (replayed)'`` and
-    ``'klvi_mf (replayed)'`` the executions that came from graph
-    replays."""
-    from viabel_tpu_torch.ops import adagrad, gaussian_lw, klvi_mf, lw_stats
+    """Every kernel's launches, and under ``'adagrad_step (replayed)'``,
+    ``'klvi_mf (replayed)'`` and ``'chivi_mf (replayed)'`` the executions
+    that came from graph replays."""
+    from viabel_tpu_torch.ops import (adagrad, chivi_mf, gaussian_lw,
+                                      klvi_mf, lw_stats)
     return {**lw_stats.launches, **gaussian_lw.launches, **adagrad.launches,
-            **klvi_mf.launches,
+            **klvi_mf.launches, **chivi_mf.launches,
             'adagrad_step (replayed)': adagrad.replayed['adagrad_step'],
-            'klvi_mf (replayed)': klvi_mf.replayed['klvi_mf']}
+            'klvi_mf (replayed)': klvi_mf.replayed['klvi_mf'],
+            'chivi_mf (replayed)': chivi_mf.replayed['chivi_mf']}
 
 
 def require_adagrad_steps(launches, runs, path):
@@ -684,6 +705,21 @@ def require_adagrad_steps(launches, runs, path):
         raise AssertionError('the {} path ran {} adagrad steps ({} replayed), '
                              'expected {} ({} replayed)'.format(
                                  path, got[0], got[1], want, want_replayed))
+
+
+def require_kernel_pair(launches, path):
+    """A `run_experiment` path on eight schools ran its KLVI and its CHIVI
+    fits each through its kernel: ``klvi_mf`` and ``chivi_mf`` launched,
+    as many times as each other (the two fits take the same iterations),
+    as many of them from graph replays, one a fit's window eager."""
+    got = {name: (launches[name], launches[name + ' (replayed)'])
+           for name in ('klvi_mf', 'chivi_mf')}
+    log('klvi_mf and chivi_mf on the {} path: {}'.format(path, got))
+    (runs, replays), chivi = got['klvi_mf'], got['chivi_mf']
+    if not (runs > 0 and chivi == (runs, replays)
+            and (runs - replays) % WINDOW == 0):
+        raise AssertionError('the {} path ran klvi_mf and chivi_mf {}: not '
+                             'once a fit\'s iteration each'.format(path, got))
 
 
 def require_launched(launches, names, path):
@@ -1027,20 +1063,31 @@ def graph_against_eager(vt, model, fam):
     """The graph run against the eager run of the same body on the card,
     float64, 2000 iterations, KLVI and CHIVI on shared draws, with the
     history kept: values, log-norms, params and the tail mean to 1e-10
-    relative; then the same for `GRAPH_LD_ITERS` iterations of the large-d
-    fit's KLVI (d = 100), whose step is a cluster launch."""
+    relative; each body here is its hand-written kernel (`ops.klvi_mf`,
+    `ops.chivi_mf`), so the graph run is also held to the eager run of the
+    autograd body (``fused`` taken off) there; then the same for
+    `GRAPH_LD_ITERS` iterations of the large-d fit's KLVI (d = 100), whose
+    step is a cluster launch."""
     from viabel_tpu_torch.optimizers import _wrap_objective
 
     for objective in ('KLVI', 'CHIVI'):
         inputs = adagrad_inputs(vt, model, fam, objective, N_OPT_ALONE,
                                 torch.float64, 5)
+        if inputs[0].fused is None:
+            raise AssertionError('{} on eight schools carries no kernel'
+                                 .format(objective))
         outs = {driver: adagrad_run(inputs, N_OPT_ALONE, driver, True)
                 for driver in ('graph', 'eager')}
-        for key, j in (('values', 0), ('log_norms', 1), ('params', 2),
-                       ('tail mean', 3)):
-            check_close('{} {} (graph vs eager, float64, {} iterations)'
-                        .format(objective, key, N_OPT_ALONE),
-                        outs['graph'][j], outs['eager'][j], 1e-300, 1e-10)
+        autograd = inputs[0]
+        autograd.fused = None
+        outs['autograd'] = adagrad_run((autograd,) + inputs[1:],
+                                       N_OPT_ALONE, 'eager', True)
+        for other in ('eager', 'autograd'):
+            for key, j in (('values', 0), ('log_norms', 1), ('params', 2),
+                           ('tail mean', 3)):
+                check_close('{} {} (graph vs {}, float64, {} iterations)'
+                            .format(objective, key, other, N_OPT_ALONE),
+                            outs['graph'][j], outs[other][j], 1e-300, 1e-10)
     # a step that is a cluster launch: the large-d fit's P = 5150
     from viabel_tpu_torch.ops.adagrad import launch_shape
     model, fam, init = large_d_setup(vt, LD_D)
@@ -1652,6 +1699,7 @@ def experiment_path(vt):
     require_adagrad_steps(launches, [n for name in runs
                                      for n in (EXP_ITERS[name],) * 2],
                           'run_experiment')
+    require_kernel_pair(launches, 'run_experiment')
 
     model, fam, init = experiment_models(vt)[0]
     chivi = vt.black_box_chivi(2, fam, model, 500, presampled=True)
@@ -3864,6 +3912,8 @@ def parity_part(vt):
         outs[name], launches = example_part(
             '23 (a) {} --full'.format(name),
             lambda: main(full=True, device='cuda'), names, runs)
+        if name == 'eight_schools':
+            require_kernel_pair(launches, '23 (a) eight_schools')
         add_launches(total, launches)
     parity_rows(outs)
     return total
@@ -4085,10 +4135,10 @@ def phase23(vt):
 # phase 24: the KLVI kernel of the mean-field families on eight schools
 KLVI_RUNS = (1, 8)        # runs a launch, in its checks and times
 KLVI_ITERS = 2000         # each fit of its paths
-# each path's fitted parameters on the kernel against the same path through
-# the autograd body on the same draws, float32, relative to their norm (the
-# card tests hold 300 iterations to 1e-5)
-KLVI_PATH_RTOL = 1e-5
+# each path's fitted parameters on a kernel (KLVI's, CHIVI's) against the
+# same path through the autograd body on the same draws, float32, relative
+# to their norm (the card tests hold 300 iterations to 1e-5)
+PATH_RTOL = 1e-5
 # operations a draw, counted from csrc/klvi_mf.cu as OPS_K1 is: the
 # transform 20, the CP density's value 137 and its gradient ~60 (8 schools
 # of 6, the two scalars ~12), the sums 30
@@ -4118,7 +4168,7 @@ def klvi_check(vt, family, model_name, K, dtype):
     counter = torch.arange(K, device='cuda') % 4
     if K == 1:
         param, block, counter = param[0], block[0], counter.clone()
-    value, grad = obj.fused.bind(param, block, counter)()
+    value, grad, _ = obj.fused.bind(param, block, counter)()
     want_v, want_g = kops.klvi_mf_plain(obj.objective, param, block, counter)
     err_v = float(((value - want_v).abs() / want_v.abs()).max())
     diff = (grad - want_g).reshape(K, -1).double()
@@ -4176,24 +4226,85 @@ def param_rows(out):
     return param.detach().double().cpu().reshape(-1, param.shape[-1])
 
 
-def klvi_mf_part(vt):
-    """Phase 24: the KLVI kernel of the mean-field families on the
-    eight-schools densities (`ops.klvi_mf`).  (a) Against its plain
-    version, the autograd objective: both families, CP and NCP, one run
-    and a batch of 8, float64 within 1e-12 and float32 within 1e-5
-    relative.  (b) Its times at K 1 and 8 (`klvi_timed`).  (c) The paths
-    that take it, each with every launch count set to 0 before it and
-    read after: `validated_vi`, an 8-start `validated_vi_multistart` and a
-    3-rate `validated_vi_sweep` on eight-schools CP with mean-field t(40)
-    KLVI, KLVI_ITERS iterations each, float32; the kernel must have
-    launched once an iteration, all but the window's from graph replays,
-    and every khat and d2 be finite; then the same path through the
-    autograd body (the objective's ``fused`` taken off) on the same
-    generator, whose fitted parameters the kernel's must match within
-    KLVI_PATH_RTOL of their norm, run by run.  Returns the row (the K 1
-    time, the K 8 time under ``instances``) and each path's launches."""
+def fused_paths(vt, kernel, make_objective, iters, rtol, paths):
+    """The paths that take an objective's hand-written body, `kernel` its
+    kernel, each with every launch count set to 0 before it and read
+    after, on eight-schools CP with mean-field t(40), `iters` iterations
+    each, float32: of `validated_vi`, an 8-start `validated_vi_multistart`
+    and a 3-rate `validated_vi_sweep`, those that `paths` names, each on
+    a fresh ``make_objective(fam, model)``.  The kernel must have launched
+    once an iteration (one launch serves a batch's iteration), all but the
+    window's from graph replays, and every khat and d2 be finite; then the
+    same path through the autograd body (the objective's ``fused`` taken
+    off) on the same generator, whose fitted parameters the kernel's must
+    match within `rtol` of their norm, run by run.  Returns each path's
+    launches."""
     from viabel_tpu_torch.models import eight_schools_cp_model
 
+    model = eight_schools_cp_model()
+    fam = vt.mean_field_t_variational_family(10, 40)
+    init = torch.zeros(20, device='cuda')
+    kw = dict(n_bound_samples=100_000, learning_rate=0.01, device='cuda')
+    calls = {
+        'validated_vi': lambda obj: vt.validated_vi(
+            model, fam, init, iters, objective_and_grad=obj,
+            learning_rate_end=0.001, generator=card_generator(71), **kw),
+        'multistart': lambda obj: vt.validated_vi_multistart(
+            model, fam, init, iters, objective_and_grad=obj, n_starts=8,
+            perturb_scale=0.1, learning_rate_end=0.001,
+            generator=card_generator(72), **kw),
+        'sweep': lambda obj: vt.validated_vi_sweep(
+            model, fam, init, iters, objective_and_grad=obj,
+            learning_rates=[0.005, 0.01, 0.02], n_bound_samples=100_000,
+            generator=card_generator(73), device='cuda')}
+    path_launches = []
+    for name in paths:
+        call = calls[name]
+        fused = make_objective(fam, model)
+        autograd = make_objective(fam, model)
+        autograd.fused = None
+        reset_launches()
+        t, out = wall(lambda: call(fused))
+        launches = read_launches()
+        khat = np.atleast_1d(np.asarray(out['khat'], dtype=float))
+        bounds = out['bounds'] if isinstance(out['bounds'], list) \
+            else [out['bounds']]
+        d2 = np.asarray([float(b['d2']) for b in bounds])
+        log('{} on the {} path ({} iterations, float32): {:.3f} s, khat {}, '
+            'd2 {}; launches {}'.format(kernel, name, iters, t,
+                                        khat.tolist(), d2.tolist(),
+                                        launches))
+        if not (np.all(np.isfinite(khat)) and np.all(np.isfinite(d2))):
+            raise AssertionError('{}: a khat or d2 is not finite'.format(name))
+        require_launched(launches, (kernel, 'adagrad_step'), name)
+        got = launches[kernel], launches[kernel + ' (replayed)']
+        if got != (iters, iters - WINDOW):
+            raise AssertionError('{}: {} ran {} times ({} replayed) for {} '
+                                 'iterations'.format(name, kernel, got[0],
+                                                     got[1], iters))
+        t_plain, plain = wall(lambda: call(autograd))
+        got, want = param_rows(out), param_rows(plain)
+        err = float(((got - want).norm(dim=1) / want.norm(dim=1)).max())
+        log('  {}: fitted parameters off the autograd body\'s on the same '
+            'draws by {:.3e} relative (limit {}; autograd {:.3f} s)'.format(
+                name, err, rtol, t_plain))
+        if not err <= rtol:
+            raise AssertionError('{}: the fit on {} is {} off the autograd '
+                                 'fit'.format(name, kernel, err))
+        path_launches.append(launches)
+    return path_launches
+
+
+def klvi_mf_part(vt):
+    """Phase 24 (a): the KLVI kernel of the mean-field families on the
+    eight-schools densities (`ops.klvi_mf`).  Against its plain version,
+    the autograd objective: both families, CP and NCP, one run and a batch
+    of 8, float64 within 1e-12 and float32 within 1e-5 relative; its times
+    at K 1 and 8 (`klvi_timed`); then `fused_paths`: `validated_vi`, an
+    8-start `validated_vi_multistart` and a 3-rate `validated_vi_sweep`
+    with presampled KLVI (n_mc 100), KLVI_ITERS iterations each, within
+    PATH_RTOL of the autograd fits.  Returns the row (the K 1 time,
+    the K 8 time under ``instances``) and each path's launches."""
     err = 0.0
     for family in ('mf_t', 'mf_gaussian'):
         for model_name in ('cp', 'ncp'):
@@ -4204,57 +4315,121 @@ def klvi_mf_part(vt):
                         err = max(err, e)
     rows = [klvi_timed(vt, K, err) for K in KLVI_RUNS]
     row = dict(rows[0], instances=rows[1:])
+    path_launches = fused_paths(
+        vt, 'klvi_mf', lambda fam, model: vt.black_box_klvi(
+            fam, model, N_MC, presampled=True), KLVI_ITERS, PATH_RTOL,
+        ('validated_vi', 'multistart', 'sweep'))
+    return row, path_launches
+
+
+# phase 24 (b): the CHIVI kernel, at es_cp_chivi_fit's draws an iteration
+CHIVI_N_MC = 500
+# operations a draw, counted from csrc/klvi_mf.cu as OPS_KLVI_DRAW is: the
+# transform 20, log q 30 (t^2 / df and its log1p a coordinate), the CP
+# density's value 137 and its gradient ~60, the log-weight, the max and the
+# weight 6, the weighted sums 41
+OPS_CHIVI_DRAW = 294
+
+
+def chivi_check(vt, family, model_name, K, dtype):
+    """The kernel against its plain version (the autograd objective) at K
+    runs on the counters' rows, n_mc 500, the plain version in float64 on
+    the same inputs (the float32 autograd objective is itself ~1e-5 off
+    float64's): max relative errors of the value, the log-norm and the
+    gradient (over its norm); float64 within 1e-12, float32 1e-5."""
+    from viabel_tpu_torch.models import (eight_schools_cp_model,
+                                         eight_schools_ncp_model)
+    from viabel_tpu_torch.ops import chivi_mf as cops
+
+    model = (eight_schools_cp_model() if model_name == 'cp'
+             else eight_schools_ncp_model())
+    fam = (vt.mean_field_t_variational_family(10, 40) if family == 'mf_t'
+           else vt.mean_field_gaussian_variational_family(10))
+    obj = vt.black_box_chivi(2, fam, model, CHIVI_N_MC, presampled=True)
+    g = card_generator(80 + K)
+    block = torch.stack([obj.make_draws(g, 4, dtype) for _ in range(K)])
+    param = torch.cat([torch.randn((K, 10), generator=g, device='cuda',
+                                   dtype=dtype),
+                       -0.5 + 0.3 * torch.randn((K, 10), generator=g,
+                                                device='cuda', dtype=dtype)],
+                      dim=1)
+    counter = torch.arange(K, device='cuda') % 4
+    if K == 1:
+        param, block, counter = param[0], block[0], counter.clone()
+    before = cops.launches['chivi_mf']
+    got = obj.fused.bind(param, block, counter)()
+    if cops.launches['chivi_mf'] != before + 1:
+        raise AssertionError('chivi_mf: a launch was not counted')
+    want = cops.chivi_mf_plain(obj, param.double(), block.double(), counter)
+    errs = []
+    for a, b in zip(got, want):
+        diff = (a.double() - b).reshape(K, -1)
+        errs.append(float((diff.norm(dim=1)
+                           / b.reshape(K, -1).norm(dim=1)).max()))
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    log('  chivi_mf {} {} K {} {}: value rel err {:.3e}, gradient rel err '
+        '{:.3e}, log-norm rel err {:.3e} (tolerance {})'.format(
+            family, model_name, K, str(dtype).split('.')[1], *errs, tol))
+    if not all(e <= tol for e in errs):
+        raise AssertionError('chivi_mf is outside its tolerance')
+    return max(float((a.double() - b).abs().max()) for a, b in zip(got, want))
+
+
+def chivi_timed(vt, K, err):
+    """The kernel's times at K runs (n_mc 500, d 10, float32, the
+    eight-schools CP mean-field t CHIVI fit's shape), as `klvi_timed`
+    takes KLVI's."""
+    from viabel_tpu_torch.models import eight_schools_cp_model
+    from viabel_tpu_torch.ops import chivi_mf as cops
 
     model = eight_schools_cp_model()
     fam = vt.mean_field_t_variational_family(10, 40)
-    init = torch.zeros(20, device='cuda')
-    kw = dict(n_bound_samples=100_000, learning_rate=0.01, device='cuda')
-    path_launches = []
-    for name, call in (
-            ('validated_vi', lambda obj: vt.validated_vi(
-                model, fam, init, KLVI_ITERS, objective_and_grad=obj,
-                learning_rate_end=0.001, generator=card_generator(71),
-                **kw)),
-            ('multistart', lambda obj: vt.validated_vi_multistart(
-                model, fam, init, KLVI_ITERS, objective_and_grad=obj,
-                n_starts=8, perturb_scale=0.1, learning_rate_end=0.001,
-                generator=card_generator(72), **kw)),
-            ('sweep', lambda obj: vt.validated_vi_sweep(
-                model, fam, init, KLVI_ITERS, objective_and_grad=obj,
-                learning_rates=[0.005, 0.01, 0.02],
-                n_bound_samples=100_000, generator=card_generator(73),
-                device='cuda'))):
-        fused = vt.black_box_klvi(fam, model, N_MC, presampled=True)
-        autograd = vt.black_box_klvi(fam, model, N_MC, presampled=True)
-        autograd.fused = None
-        reset_launches()
-        t, out = wall(lambda: call(fused))
-        launches = read_launches()
-        khat = np.atleast_1d(np.asarray(out['khat'], dtype=float))
-        bounds = out['bounds'] if isinstance(out['bounds'], list) \
-            else [out['bounds']]
-        d2 = np.asarray([float(b['d2']) for b in bounds])
-        log('klvi_mf on the {} path ({} iterations, float32): {:.3f} s, '
-            'khat {}, d2 {}; launches {}'.format(
-                name, KLVI_ITERS, t, khat.tolist(), d2.tolist(), launches))
-        if not (np.all(np.isfinite(khat)) and np.all(np.isfinite(d2))):
-            raise AssertionError('{}: a khat or d2 is not finite'.format(name))
-        require_launched(launches, ('klvi_mf', 'adagrad_step'), name)
-        got = launches['klvi_mf'], launches['klvi_mf (replayed)']
-        if got != (KLVI_ITERS, KLVI_ITERS - WINDOW):
-            raise AssertionError('{}: klvi_mf ran {} times ({} replayed) for '
-                                 '{} iterations'.format(name, got[0], got[1],
-                                                        KLVI_ITERS))
-        t_plain, plain = wall(lambda: call(autograd))
-        got, want = param_rows(out), param_rows(plain)
-        err = float(((got - want).norm(dim=1) / want.norm(dim=1)).max())
-        log('  {}: fitted parameters off the autograd body\'s on the same '
-            'draws by {:.3e} relative (limit {}; autograd {:.3f} s)'.format(
-                name, err, KLVI_PATH_RTOL, t_plain))
-        if not err <= KLVI_PATH_RTOL:
-            raise AssertionError('{}: the fit on klvi_mf is {} off the '
-                                 'autograd fit'.format(name, err))
-        path_launches.append(launches)
+    obj = vt.black_box_chivi(2, fam, model, CHIVI_N_MC, presampled=True)
+    g = card_generator(90 + K)
+    block = torch.stack([obj.make_draws(g, 8, torch.float32)
+                         for _ in range(K)])
+    param = torch.zeros((K, 20), device='cuda')
+    counter = torch.full((K,), 3, dtype=torch.int64, device='cuda')
+    evaluate = obj.fused.bind(param, block, counter)
+    # bytes: the row of draws, the parameter, y and sigma and the counter
+    # read, the value, the gradient and the log-norm written, each run
+    nbytes = K * (4 * (CHIVI_N_MC * 10 + 20 + 16 + 22) + 8)
+    nops = K * CHIVI_N_MC * OPS_CHIVI_DRAW
+    label = 'chivi_mf (K = {}, n_mc {}, d 10)'.format(K, CHIVI_N_MC)
+    row = timed_row('chivi_mf', evaluate, lambda: cops.chivi_mf_plain(
+        obj, param, block, counter), nbytes, nops, err, K, label=label)
+    row['graph_device_ms'] = graph_device_ms(evaluate,
+                                             KERNEL_KEY['chivi_mf'])
+    row['K'] = K
+    log('{}: {} ms on the card hot in L2 inside a replayed graph'.format(
+        label, fmt_ms(row['graph_device_ms'])))
+    return row
+
+
+def chivi_mf_part(vt):
+    """Phase 24 (b): the CHIVI kernel of the mean-field families on the
+    eight-schools densities (`ops.chivi_mf`), as (a) takes KLVI's:
+    against its plain version at n_mc 500, both families, CP and NCP, one
+    run and a batch of 8, float64 within 1e-12 and float32 within 1e-5
+    relative (value, gradient and log-norm); its times at K 1 and 8
+    (`chivi_timed`); then `fused_paths`: `validated_vi` and an 8-start
+    `validated_vi_multistart` with presampled CHIVI (alpha 2, n_mc 500),
+    KLVI_ITERS iterations each, within PATH_RTOL of the autograd
+    fits.  Returns the row and each path's launches."""
+    err = 0.0
+    for family in ('mf_t', 'mf_gaussian'):
+        for model_name in ('cp', 'ncp'):
+            for K in KLVI_RUNS:
+                for dtype in (torch.float64, torch.float32):
+                    e = chivi_check(vt, family, model_name, K, dtype)
+                    if dtype == torch.float32:
+                        err = max(err, e)
+    rows = [chivi_timed(vt, K, err) for K in KLVI_RUNS]
+    row = dict(rows[0], instances=rows[1:])
+    path_launches = fused_paths(
+        vt, 'chivi_mf', lambda fam, model: vt.black_box_chivi(
+            2, fam, model, CHIVI_N_MC, presampled=True), KLVI_ITERS,
+        PATH_RTOL, ('validated_vi', 'multistart'))
     return row, path_launches
 
 
@@ -4303,6 +4478,7 @@ def main():
     rows['adagrad_step']['instances'] = batched_step_check(vt)
     phases_done('12')
     rows['klvi_mf'], klvi_launches = klvi_mf_part(vt)
+    rows['chivi_mf'], chivi_launches = chivi_mf_part(vt)
     phases_done('24 (before the long traces)')
     path_launches = [launches, r_launches, e_launches, multistart_path(vt)]
     phases_done('13')
@@ -4319,7 +4495,7 @@ def main():
     phases_done('22')
     path_launches.append(phase23(vt))
     phases_done('23')
-    path_launches.extend(klvi_launches)
+    path_launches.extend(klvi_launches + chivi_launches)
 
     kernels = [dict(name=name, route='cuda',
                     source='viabel_tpu_torch/csrc/' + SOURCE[name],

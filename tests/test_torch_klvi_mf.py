@@ -28,7 +28,9 @@ import viabel_tpu_torch as pt
 from viabel_tpu_torch.models import eight_schools_cp_model as tcp
 from viabel_tpu_torch.models import eight_schools_ncp_model as tncp
 from viabel_tpu_torch.ops import adagrad as aops
+from viabel_tpu_torch.ops import chivi_mf as cops
 from viabel_tpu_torch.ops import klvi_mf as kops
+from viabel_tpu_torch.ops import mf_kernels
 from viabel_tpu_torch.optimizers import (_adagrad_run, _adagrad_runs,
                                          _advance, _batched_objective,
                                          _batched_step,
@@ -255,7 +257,7 @@ def _case(name):
         'klvi_pd': (lambda: pt.black_box_klvi_pd(mft, cp, 20, True), False),
         'klvi_pd2': (lambda: pt.black_box_klvi_pd2(mft, cp, 20, True),
                      False),
-        'chivi': (lambda: pt.black_box_chivi(2, mft, cp, 20, True), False),
+        'chivi': (lambda: pt.black_box_chivi(2, mft, cp, 20, True), True),
         'perturbed': (lambda: pt.perturbed_black_box_vi(mft, cp, 20), False),
     }
     make, carries = cases[name]
@@ -272,9 +274,10 @@ DISPATCH_CASES = ('mf_t_cp', 'mf_t_ncp', 'mf_gaussian_cp',
 @pytest.mark.parametrize('case', DISPATCH_CASES)
 def test_dispatch_rule(case):
     """The objective carries the kernel's body exactly for presampled KLVI
-    of a mean-field family on an eight-schools `Model`; the wrapped and the
-    batched adagrad objectives carry it on, the IA chains' step never; and
-    on the CPU no body engages, so a CPU run keeps its autograd body."""
+    of a mean-field family on an eight-schools `Model` (presampled CHIVI
+    there carries `ops.chivi_mf`'s); the wrapped and the batched adagrad
+    objectives carry it on, the IA chains' step never; and on the CPU no
+    body engages, so a CPU run keeps its autograd body."""
     obj, carries = _case(case)
     body = getattr(obj, 'fused', None)
     assert (body is not None) == carries
@@ -289,7 +292,8 @@ def test_dispatch_rule(case):
         assert getattr(_batched_step(obj, None), 'fused', None) is None
     if body is None:
         return
-    assert isinstance(body, kops.KlviMeanField)
+    assert isinstance(body, cops.ChiviMeanField if case == 'chivi'
+                      else kops.KlviMeanField)
     assert body.family_name in kops.FAMILIES
     assert body.model.kernel in kops.MODELS
     param = torch.zeros(2 * D, dtype=torch.float64)
@@ -299,7 +303,7 @@ def test_dispatch_rule(case):
                                                   torch.float64),
                            WINDOW, EPS, False)
     _, fused = _iteration_objective(_wrap_objective(obj, None), state, draws)
-    assert fused is False
+    assert fused is None
 
 
 @pytest.mark.parametrize('layout,fits', [
@@ -332,7 +336,7 @@ def test_layouts_the_kernel_takes(layout, fits):
     }
     p, d = cases[layout]
     try:
-        kops._layout(p, d)
+        mf_kernels.layout(p, d)
         took = True
     except (TypeError, ValueError):
         took = False
@@ -400,7 +404,8 @@ def test_kernel_matches_plain(cuda, family, model, runs, dtype):
     _, _, obj = _port(family, model)
     evaluate = obj.fused.bind(p, block, counter)
     before = kops.launches['klvi_mf']
-    value, grad = evaluate()
+    value, grad, log_norm = evaluate()
+    assert log_norm is None
     assert kops.launches['klvi_mf'] == before + 1
     want_v, want_g = kops.klvi_mf_plain(obj.objective, p, block, counter)
     vals = value.reshape(-1).cpu().double().numpy()
@@ -410,7 +415,7 @@ def test_kernel_matches_plain(cuda, family, model, runs, dtype):
     for k in range(K):
         assert rel(g[k], wg[k]) < TOL[dtype], k
     counter.fill_(5)
-    value, grad = evaluate()
+    value, grad, _ = evaluate()
     assert torch.isnan(value).all() and torch.isnan(grad).all()
 
 

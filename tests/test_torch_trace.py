@@ -38,10 +38,12 @@ K = 2
 DEVICE_KINDS = ('kernel', 'gpu_memcpy', 'gpu_memset')
 
 
-def _setup(device, n_mc=20):
+def _setup(device, n_mc=20, objective='klvi'):
     model = eight_schools_cp_model()
     fam = pt.mean_field_t_variational_family(10, 40)
-    obj = pt.black_box_klvi(fam, model, n_mc, presampled=True)
+    obj = (pt.black_box_klvi(fam, model, n_mc, presampled=True)
+           if objective == 'klvi'
+           else pt.black_box_chivi(2, fam, model, n_mc, presampled=True))
     init = torch.zeros(fam.var_param_dim, device=device)
     return model, fam, obj, init
 
@@ -308,19 +310,22 @@ CLOCK_SLACK_NS = 50_000
 
 
 @pytest.mark.cuda
-def test_spans_share_the_device_clock(cuda):
-    """A profiled fit at eight-schools sizes (n_mc 100, 2.5e6 bound
-    samples) on the card: every device operation starts inside
-    ``vt.fit``; what starts inside ``vt.draws`` ends before it closes (so
-    no queued draw is counted in ``vt.optimize``); ``vt.optimize`` closes
+@pytest.mark.parametrize('objective,n_mc', [('klvi', 100), ('chivi', 500)])
+def test_spans_share_the_device_clock(cuda, objective, n_mc):
+    """A profiled fit at eight-schools sizes (KLVI n_mc 100 or CHIVI n_mc
+    500, 2.5e6 bound samples) on the card: every device operation starts
+    inside ``vt.fit``; what starts inside ``vt.draws`` ends before it
+    closes (so no queued draw is counted in ``vt.optimize``);
+    ``vt.optimize`` closes
     after the last replayed kernel ends; every graph launch (one for each
     graph's worth of iterations past the window: the objective's
     hand-written body captures `_FUSED_GRAPH_ITERS` iterations a graph,
     the remainder one a graph) is inside ``vt.replay`` and launched its
-    iterations' kernels, the same number an iteration: two (that body and
-    the step), or some hundred operations for a body through autograd."""
+    iterations' kernels, the same number an iteration: two (that body's
+    kernel and the step, 16 in a graph of 8), or some hundred operations
+    for a body through autograd."""
     n_iters, window = 300, 10
-    model, fam, obj, init = _setup(cuda, n_mc=100)
+    model, fam, obj, init = _setup(cuda, n_mc=n_mc, objective=objective)
     depth = (optimizers._FUSED_GRAPH_ITERS if obj.fused is not None
              else optimizers._GRAPH_ITERS)
     full, rest = divmod(n_iters - window, depth)
@@ -381,5 +386,10 @@ def test_spans_share_the_device_clock(cuda):
     ops_each, kernels_each = each.pop()
     if obj.fused is not None:   # the hand-written body and the step
         assert kernels_each == 2 and ops_each < 20
+        assert kernels[launches[0][4]] == 2 * depth
+        names = {r[0] for r in replayed if r[1] == 'kernel'}
+        assert len(names) == 2
+        assert sum('{}_mf_kernel'.format(objective) in n for n in names) == 1
+        assert sum('adagrad_step_kernel' in n for n in names) == 1
     else:                       # the body through autograd
         assert 20 <= ops_each <= 400

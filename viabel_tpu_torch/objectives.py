@@ -19,19 +19,21 @@ iteration (``iteration_draws(generator, dtype)``, the ``(n_samples,
 
 Every objective carries ``has_log_norm``, and ``host_callback``: whether
 its log density is a host-side one (`models.external`), which the
-optimizers never capture in a CUDA graph.  Presampled `black_box_klvi` of
-a mean-field family on an eight-schools density also carries ``fused``,
-the hand-written body that the optimizers run in its place on the card
-(`ops.klvi_mf`; None elsewhere).  The KLVI forms carry their pure
-scalar ``objective(var_param, draws)``, whose gradient the batched
-optimizers take with ``torch.func.grad_and_value``; the CHIVI forms carry
-``compute_log_weights`` and are themselves `torch.func`-transformable (the
-gradient a `torch.func.vjp` of the log-weights with a cotangent held
-constant), so the batched optimizers vmap them.
+optimizers never capture in a CUDA graph.  Presampled `black_box_klvi` and
+`black_box_chivi` of a mean-field family on an eight-schools density also
+carry ``fused``, the hand-written body that the optimizers run in their
+place on the card (`ops.klvi_mf`, `ops.chivi_mf`; None elsewhere).  The
+KLVI forms carry their pure scalar ``objective(var_param, draws)``, whose
+gradient the batched optimizers take with ``torch.func.grad_and_value``;
+the CHIVI forms carry ``compute_log_weights`` and are themselves
+`torch.func`-transformable (the gradient a `torch.func.vjp` of the
+log-weights with a cotangent held constant), so the batched optimizers
+vmap them.
 """
 import torch
 
 from .models.external import is_host_callback
+from .ops.chivi_mf import fused_chivi
 from .ops.gaussian_lw import philox_normal
 from .ops.klvi_mf import fused_klvi
 
@@ -265,6 +267,9 @@ def _chivi(alpha, var_family, log_density, n_samples, presampled, neff):
     value_grad_and_log_norm.has_log_norm = True
     value_grad_and_log_norm.host_callback = is_host_callback(log_density)
     value_grad_and_log_norm.compute_log_weights = compute_log_weights
+    value_grad_and_log_norm.fused = (
+        fused_chivi(value_grad_and_log_norm, alpha, var_family, log_density)
+        if presampled and not neff else None)
     _attach_draws(value_grad_and_log_norm, var_family, n_samples)
     if presampled:
         _attach_presampling(value_grad_and_log_norm, var_family, n_samples)
@@ -283,9 +288,13 @@ def black_box_chivi(alpha, var_family, log_density, n_samples,
     log-weights with the weights as its cotangent, as the JAX package's
     ``jax.vjp`` with a stopped cotangent; the CUBO value is not
     differentiated.  The function is `torch.func`-transformable, so the
-    batched optimizers vmap it.  The naive Monte Carlo CUBO degenerates
-    once the log-weights spread over more than a few nats (from d = 30 up
-    in the JAX package's measurements): use it at small d.
+    batched optimizers vmap it.  Presampled, on a mean-field family and an
+    eight-schools `models.Model`, it carries ``fused``
+    (`ops.chivi_mf.fused_chivi`): value, gradient and log-norm in one
+    kernel, which the adagrad runs take on the card in place of this
+    autograd body, its plain version.  The naive Monte Carlo CUBO
+    degenerates once the log-weights spread over more than a few nats (from
+    d = 30 up in the JAX package's measurements): use it at small d.
     """
     return _chivi(alpha, var_family, log_density, n_samples, presampled,
                   False)

@@ -11,11 +11,11 @@ in a CUDA graph and replayed, so no iteration waits for the host.  A batch
 of K runs (`_adagrad_runs`, the batched pipelines' optimizer) is the same
 body with a leading run axis: ``torch.func.vmap`` of the objective's
 gradient and one launch of the step kernel for every run.  Where an
-objective carries a hand-written body (``fused``: presampled KLVI of a
-mean-field family on an eight-schools density, `ops.klvi_mf`) and it
-engages on the card, an iteration is that one kernel and the step, for
-one run or the whole batch, and a graph captures `_FUSED_GRAPH_ITERS`
-iterations.  The IA
+objective carries a hand-written body (``fused``: presampled KLVI or CHIVI
+of a mean-field family on an eight-schools density, `ops.klvi_mf`,
+`ops.chivi_mf`) and it engages on the card, an iteration is that one
+kernel and the step, for one run or the whole batch, and a graph captures
+`_FUSED_GRAPH_ITERS` iterations.  The IA
 optimizers' chain step runs eagerly: a Python loop over iterations, the
 learning rate a host float, nothing waiting for the device.  Their chains
 are a batch dimension: one batched step an iteration through
@@ -50,7 +50,6 @@ from .ops.adagrad import adagrad_step
 from .ops.adagrad import new_state as new_adagrad_state
 from .ops.adagrad import replay as adagrad_replay
 from .ops.gaussian_lw import philox_normal
-from .ops.klvi_mf import count_replays as count_fused_replays
 from .ops.philox import fold_in, philox_seed
 
 __all__ = ['learning_rate_schedule', 'adagrad_optimize',
@@ -100,6 +99,7 @@ def _wrap_objective(objective_and_grad, has_log_norm):
     obj.presampled = getattr(objective_and_grad, 'presampled', False)
     obj.host_callback = getattr(objective_and_grad, 'host_callback', False)
     obj.fused = getattr(objective_and_grad, 'fused', None)
+    obj.has_log_norm = has_log_norm
     return obj
 
 
@@ -177,27 +177,31 @@ def _draws_of(obj, state, source, i):
 
 def _iteration_objective(obj, state, source):
     """``(objective, fused)``: ``objective(i)``, the value, gradient and
-    log-norm of `obj` at ``state.param`` at iteration `i`, and whether it
-    is the objective's hand-written body.  That body (``obj.fused``, see
-    `ops.klvi_mf`) is taken where it engages on the state's parameter and
-    the whole presampled block `source`: it reads the iteration's row
-    itself from the device counter and writes into buffers bound here,
-    once a run.  Any other objective runs ``obj`` on `_draws_of` the
-    iteration (through autograd)."""
+    log-norm of `obj` at ``state.param`` at iteration `i`, and the
+    objective's hand-written body where ``objective`` is that body, else
+    None.  That body (``obj.fused``, see `ops.klvi_mf`, `ops.chivi_mf`) is
+    taken where it engages on the state's parameter and the whole
+    presampled block `source`: it reads the iteration's row itself from
+    the device counter and writes into buffers bound here, once a run.
+    Its log-norm (CHIVI's; KLVI's body has none) goes to the step where
+    the run keeps one (``obj.has_log_norm``), else None, as `obj` gives.
+    Any other objective runs ``obj`` on `_draws_of` the iteration (through
+    autograd)."""
     fused = getattr(obj, 'fused', None)
     if fused is not None and fused.engages(state.param, source):
         evaluate = fused.bind(state.param, source, state.counter)
+        keeps = getattr(obj, 'has_log_norm', False)
 
         def objective(i):
-            value, grad = evaluate()
-            return value, grad, None
+            value, grad, log_norm = evaluate()
+            return value, grad, log_norm if keeps else None
 
-        return objective, True
+        return objective, fused
 
     def objective(i):
         return obj(state.param, _draws_of(obj, state, source, i))
 
-    return objective, False
+    return objective, None
 
 
 def _adagrad_iteration(objective, state, i):
@@ -231,9 +235,10 @@ def _adagrad_graph(objective, fused, state, start, iters, window,
     starts past the window evaluates an autograd body once instead and
     discards the result; a `fused` body, its buffers bound, needs none),
     then the body captured `_GRAPH_ITERS` times (`_FUSED_GRAPH_ITERS` for
-    a `fused` body) in one CUDA graph and once in another, and those
-    graphs replayed until the iterations are done, ``report(i)`` after
-    each.  A failed capture raises."""
+    a `fused` body, the hand-written body or None) in one CUDA graph and
+    once in another, and those graphs replayed until the iterations are
+    done, ``report(i)`` after each (a `fused` body's replays counted by
+    its ``count_replays``).  A failed capture raises."""
     device = state.param.device
     main = torch.cuda.current_stream(device)
     side = torch.cuda.Stream(device)
@@ -241,9 +246,9 @@ def _adagrad_graph(objective, fused, state, start, iters, window,
     warm = min(max(window - start, 0), iters)
     with span('eager'), torch.cuda.stream(side):
         _adagrad_eager(objective, state, start, warm, report)
-        if warm == 0 and iters and not fused:
+        if warm == 0 and iters and fused is None:
             objective(start)
-    depth = _FUSED_GRAPH_ITERS if fused else _GRAPH_ITERS
+    depth = _GRAPH_ITERS if fused is None else _FUSED_GRAPH_ITERS
     full, rest = divmod(iters - warm, depth)
     graphs = []
     for count, steps in ((full, depth), (rest, 1)):
@@ -257,8 +262,8 @@ def _adagrad_graph(objective, fused, state, start, iters, window,
         for graph, steps, count in graphs:
             for _ in range(count):
                 adagrad_replay(graph, steps)
-                if fused:
-                    count_fused_replays(steps)
+                if fused is not None:
+                    fused.count_replays(steps)
                 if report is not None:
                     for j in range(i, i + steps):
                         report(j)
@@ -470,8 +475,9 @@ def _batched_objective(objective_and_grad, has_log_norm):
     output is kept when `has_log_norm` (default: the objective's own
     flag), else None (the batched adagrad body: the step kernel takes
     None as 0).  The step carries the objective's hand-written body
-    (``fused``, `ops.klvi_mf`), which the adagrad runs bind to their whole
-    block of draws where it engages."""
+    (``fused``, `ops.klvi_mf`, `ops.chivi_mf`) and ``has_log_norm``, which
+    the adagrad runs bind to their whole block of draws where it
+    engages."""
     if has_log_norm is None:
         has_log_norm = getattr(objective_and_grad, 'has_log_norm', False)
     if getattr(objective_and_grad, 'compute_log_weights', None) is not None:
@@ -497,6 +503,7 @@ def _batched_objective(objective_and_grad, has_log_norm):
     step.presampled = True
     step.host_callback = getattr(objective_and_grad, 'host_callback', False)
     step.fused = getattr(objective_and_grad, 'fused', None)
+    step.has_log_norm = has_log_norm
     return step
 
 

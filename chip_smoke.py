@@ -670,26 +670,16 @@ def check_close(name, got, want, atol, rtol):
 
 
 def reset_launches():
-    from viabel_tpu_torch.ops import (adagrad, chivi_mf, gaussian_lw,
-                                      klvi_mf, lw_stats)
-    lw_stats.reset_launches()
-    gaussian_lw.reset_launches()
-    adagrad.reset_launches()
-    klvi_mf.reset_launches()
-    chivi_mf.reset_launches()
+    from viabel_tpu_torch.ops import _launch
+    _launch.reset_launches()
 
 
 def read_launches():
-    """Every kernel's launches, and under ``'adagrad_step (replayed)'``,
-    ``'klvi_mf (replayed)'`` and ``'chivi_mf (replayed)'`` the executions
-    that came from graph replays."""
-    from viabel_tpu_torch.ops import (adagrad, chivi_mf, gaussian_lw,
-                                      klvi_mf, lw_stats)
-    return {**lw_stats.launches, **gaussian_lw.launches, **adagrad.launches,
-            **klvi_mf.launches, **chivi_mf.launches,
-            'adagrad_step (replayed)': adagrad.replayed['adagrad_step'],
-            'klvi_mf (replayed)': klvi_mf.replayed['klvi_mf'],
-            'chivi_mf (replayed)': chivi_mf.replayed['chivi_mf']}
+    """Every kernel's launches, and under ``'<kernel> (replayed)'`` the
+    executions that came from graph replays."""
+    from viabel_tpu_torch.ops._launch import launches, replayed
+    return {**launches, **{name + ' (replayed)': n
+                           for name, n in replayed.items()}}
 
 
 def require_adagrad_steps(launches, runs, path):
@@ -4356,9 +4346,9 @@ def chivi_check(vt, family, model_name, K, dtype):
     counter = torch.arange(K, device='cuda') % 4
     if K == 1:
         param, block, counter = param[0], block[0], counter.clone()
-    before = cops.launches['chivi_mf']
+    before = read_launches()['chivi_mf']
     got = obj.fused.bind(param, block, counter)()
-    if cops.launches['chivi_mf'] != before + 1:
+    if read_launches()['chivi_mf'] != before + 1:
         raise AssertionError('chivi_mf: a launch was not counted')
     want = cops.chivi_mf_plain(obj, param.double(), block.double(), counter)
     errs = []

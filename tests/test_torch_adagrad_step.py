@@ -20,6 +20,7 @@ import torch
 import viabel_tpu_torch as pt
 from viabel_tpu_torch import optimizers
 from viabel_tpu_torch.models import eight_schools_cp_model as tcp
+from viabel_tpu_torch.ops import _launch
 from viabel_tpu_torch.ops import adagrad as aops
 from viabel_tpu_torch.optimizers import (_adagrad_run, _learning_rates,
                                          _wrap_objective)
@@ -203,12 +204,12 @@ def test_step_adds_the_tail_from_its_start_and_checks_its_inputs():
         aops.adagrad_step(state, torch.zeros(P + 1, dtype=torch.float64),
                           torch.tensor(0.0, dtype=torch.float64),
                           torch.tensor(0.0, dtype=torch.float64))
-    before = dict(aops.launches)
+    before = dict(_launch.launches)
     fresh = state._replace(counter=torch.zeros(1, dtype=torch.int64))
     aops.adagrad_step(fresh, torch.zeros(P, dtype=torch.float64),
                       torch.tensor(0.0, dtype=torch.float64),
                       torch.tensor(0.0, dtype=torch.float64))
-    assert aops.launches == before  # the plain version launches nothing
+    assert _launch.launches == before  # the plain version launches nothing
 
 
 def _objectives(jx, method, n_mc):
@@ -410,13 +411,13 @@ def test_step_kernel_matches_plain(cuda, dtype, with_log_norms):
     lr = _learning_rates(n_steps, LR, LR_END, dtype)
     states = [aops.new_state(torch.zeros(P, dtype=dtype, device=cuda), lr,
                              WINDOW, EPS, True) for _ in range(2)]
-    before = aops.launches['adagrad_step']
+    before = _launch.launches['adagrad_step']
     for i in range(n_steps):
         args = [torch.as_tensor(a, dtype=dtype, device=cuda)
                 for a in (grads[i], values[i], log_norms[i])]
         aops.adagrad_step(states[0], *args)
         aops.adagrad_step_plain(states[1], *args)
-    assert aops.launches['adagrad_step'] == before + n_steps
+    assert _launch.launches['adagrad_step'] == before + n_steps
     rtol = 1e-12 if dtype == torch.float64 else 2e-5
     for key in ('param', 'values', 'log_norms', 'params', 'tail_sum',
                 'grads', 'ring_log_norms', 'counter'):
@@ -447,12 +448,12 @@ def test_graph_run_matches_eager_run(cuda, method, depth, monkeypatch):
     init = torch.zeros(20, dtype=torch.float64, device=cuda)
     outs = {}
     for driver in ('graph', 'eager'):
-        aops.reset_launches()
+        _launch.reset_launches()
         outs[driver] = _adagrad_run(_wrap_objective(obj, None), n_iters,
                                     WINDOW, LR, EPS, LR_END, init, draws,
                                     keep_history=True, driver=driver)
-        assert aops.launches['adagrad_step'] == n_iters
-        assert aops.replayed['adagrad_step'] == (
+        assert _launch.launches['adagrad_step'] == n_iters
+        assert _launch.replayed['adagrad_step'] == (
             n_iters - WINDOW if driver == 'graph' else 0)
     for got, want in zip(outs['graph'], outs['eager']):
         np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
@@ -506,11 +507,11 @@ def test_batched_graph_run_matches_eager_run(cuda, method):
     lr = _learning_rates(n_iters, LR, LR_END, torch.float64).repeat(K, 1)
     outs = {}
     for driver in ('graph', 'eager'):
-        aops.reset_launches()
+        _launch.reset_launches()
         outs[driver] = optimizers._adagrad_runs(
             obj, None, n_iters, WINDOW, lr, EPS, inits, draws,
             keep_history=True, driver=driver)
-        assert aops.launches['adagrad_step'] == n_iters
+        assert _launch.launches['adagrad_step'] == n_iters
     for got, want in zip(outs['graph'], outs['eager']):
         np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                    rtol=1e-10, atol=1e-300)
@@ -637,11 +638,11 @@ def test_cluster_graph_run_matches_eager_run(cuda):
         cuda, torch.float64)
     outs = {}
     for driver in ('graph', 'eager'):
-        aops.reset_launches()
+        _launch.reset_launches()
         outs[driver] = _adagrad_run(_wrap_objective(obj, None), n_iters,
                                     WINDOW, LR, EPS, LR_END, init, draws,
                                     keep_history=True, driver=driver)
-        assert aops.launches['adagrad_step'] == n_iters
+        assert _launch.launches['adagrad_step'] == n_iters
     for got, want in zip(outs['graph'], outs['eager']):
         np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                    rtol=1e-10, atol=1e-300)

@@ -32,9 +32,10 @@ from test_torch_klvi_mf import DF, SIGMA, Y, _inputs, np_cp, np_ncp, rel
 import viabel_tpu_torch as pt
 from viabel_tpu_torch.models import eight_schools_cp_model as tcp
 from viabel_tpu_torch.models import eight_schools_ncp_model as tncp
+from viabel_tpu_torch.ops import _launch
 from viabel_tpu_torch.ops import adagrad as aops
 from viabel_tpu_torch.ops import chivi_mf as cops
-from viabel_tpu_torch.ops import klvi_mf as kops
+from viabel_tpu_torch.ops import mf_kernels
 from viabel_tpu_torch.optimizers import (_adagrad_run, _adagrad_runs,
                                          _advance, _batched_objective,
                                          _batched_step,
@@ -153,23 +154,23 @@ def test_closed_form_chivi_matches_autograd_and_jax(jx, family, model, runs):
 # --------------------------------------------------------------------------
 
 def _case(name):
-    """An objective of each kind the rule must tell apart, and the class
-    of the hand-written body it carries (None: the autograd body)."""
+    """An objective of each kind the rule must tell apart, and the entry
+    point of the hand-written body it carries (None: the autograd body)."""
     from viabel_tpu_torch.models import (funnel_model,
                                          make_callback_log_density)
     mft, mfg = _family('mf_t'), _family('mf_gaussian')
     cp, ncp = tcp(), tncp()
     chivi = pt.black_box_chivi
     cases = {
-        'mf_t_cp': (lambda: chivi(2, mft, cp, 20, True), cops.ChiviMeanField),
+        'mf_t_cp': (lambda: chivi(2, mft, cp, 20, True), 'chivi_mf'),
         'mf_t_ncp': (lambda: chivi(2, mft, ncp, 20, True),
-                     cops.ChiviMeanField),
+                     'chivi_mf'),
         'mf_gaussian_cp': (lambda: chivi(2, mfg, cp, 20, True),
-                           cops.ChiviMeanField),
+                           'chivi_mf'),
         'mf_gaussian_ncp': (lambda: chivi(2, mfg, ncp, 20, True),
-                            cops.ChiviMeanField),
+                            'chivi_mf'),
         'alpha_1_5': (lambda: chivi(1.5, mft, cp, 20, True),
-                      cops.ChiviMeanField),
+                      'chivi_mf'),
         'neff': (lambda: pt.black_box_chivi_neff(2, mft, cp, 20, True),
                  None),
         'not_presampled': (lambda: chivi(2, mft, cp, 20), None),
@@ -189,7 +190,7 @@ def _case(name):
             lambda x: np.zeros(len(x)), lambda x: np.zeros_like(x), D,
             batched=True), 20, True), None),
         'klvi': (lambda: pt.black_box_klvi(mft, cp, 20, True),
-                 kops.KlviMeanField),
+                 'klvi_mf'),
     }
     make, body = cases[name]
     return make(), body
@@ -213,9 +214,13 @@ def test_dispatch_rule(case):
     body = getattr(obj, 'fused', None)
     assert (body is None) == (kind is None)
     if body is not None:
-        assert type(body) is kind
-        assert body.family_name in kops.FAMILIES
-        assert body.model.kernel in kops.MODELS
+        assert type(body) is mf_kernels.MeanFieldBody
+        assert body.name == kind
+        # the family rides in the first own argument: CHIVI's t flag,
+        # KLVI's entropy constant (0 for the t family)
+        assert (body.own[0] == (1 if kind == 'chivi_mf' else 0)) == (
+            not case.startswith('mf_gaussian'))
+        assert body.model.kernel in mf_kernels.MODELS
     for flag in (None, False):
         wrapped = _wrap_objective(obj, flag)
         assert wrapped.fused is body
@@ -263,19 +268,16 @@ def test_plain_version_reads_the_counters_row(runs):
 
 
 class _PlainBody:
-    """A stand-in for `ops.chivi_mf.ChiviMeanField` that engages on the
-    CPU: its ``bind`` evaluates the plain version on the counter's row,
-    as the kernel would on the card, into buffers bound once a run."""
+    """A stand-in for CHIVI's `ops.mf_kernels.MeanFieldBody` that engages
+    on the CPU: its ``bind`` evaluates the plain version on the counter's
+    row, as the kernel would on the card, into buffers bound once a
+    run."""
 
     def __init__(self, body):
         self.body = body
-        self.replays = 0
 
     def engages(self, param, draws):
         return True
-
-    def count_replays(self, evaluations):
-        self.replays += evaluations
 
     def bind(self, param, draws, counter):
         value = param.new_empty(param.shape[:-1])
@@ -382,9 +384,9 @@ def test_kernel_matches_plain(cuda, family, model, runs, dtype, n_mc):
         p, block, counter = p[0], block[0], counter[:1].clone()
     obj = _port(family, model, n_mc)
     evaluate = obj.fused.bind(p, block, counter)
-    before = cops.launches['chivi_mf']
+    before = _launch.launches['chivi_mf']
     outs = [o.clone() for o in evaluate()]
-    assert cops.launches['chivi_mf'] == before + 1
+    assert _launch.launches['chivi_mf'] == before + 1
     assert all(torch.equal(a, b) for a, b in zip(outs, evaluate()))
     want = cops.chivi_mf_plain(obj, p.double(), block.double(), counter)
     for got, w in zip(outs, want):
@@ -417,11 +419,11 @@ def _fit_pair(cuda, family, model, dtype, K, flag, n_iters=300):
         return _adagrad_runs(o, flag, n_iters, WINDOW, lr, EPS, inits, block,
                              keep_history=True, driver=driver)
 
-    cops.reset_launches()
+    _launch.reset_launches()
     fused = run(obj, 'graph')
-    counts = cops.launches['chivi_mf'], cops.replayed['chivi_mf']
+    counts = _launch.launches['chivi_mf'], _launch.replayed['chivi_mf']
     plain = run(autograd, 'eager')
-    assert cops.launches['chivi_mf'] == counts[0]  # autograd: no launch
+    assert _launch.launches['chivi_mf'] == counts[0]  # autograd: no launch
     return fused, counts, plain
 
 
@@ -482,13 +484,12 @@ def test_resumed_run_launches_once_an_iteration(cuda):
     _advance(wrapped, whole, block, 0, n_iters, WINDOW, driver='graph')
     resumed = fresh()
     _advance(wrapped, resumed, block, 0, first, WINDOW, driver='graph')
-    cops.reset_launches()
-    kops.reset_launches()
+    _launch.reset_launches()
     _advance(wrapped, resumed, block, first, n_iters - first, WINDOW,
              driver='graph')
-    assert cops.launches['chivi_mf'] == n_iters - first
-    assert cops.replayed['chivi_mf'] == n_iters - first
-    assert kops.launches['klvi_mf'] == 0
+    assert _launch.launches['chivi_mf'] == n_iters - first
+    assert _launch.replayed['chivi_mf'] == n_iters - first
+    assert _launch.launches['klvi_mf'] == 0
     assert torch.equal(resumed.param, whole.param)
     assert torch.equal(resumed.values, whole.values)
     assert torch.equal(resumed.log_norms, whole.log_norms)
@@ -504,16 +505,16 @@ def test_validated_vi_and_multistart_engage_the_kernel(cuda):
     init = torch.zeros(2 * D, device=cuda)
     n_iters = 200
     obj = pt.black_box_chivi(ALPHA, fam, model, 500, presampled=True)
-    cops.reset_launches()
+    _launch.reset_launches()
     out = pt.validated_vi(model, fam, init, n_iters, objective_and_grad=obj,
                           n_bound_samples=20000, device=cuda)
-    assert cops.launches['chivi_mf'] == n_iters
-    assert cops.replayed['chivi_mf'] == n_iters - WINDOW
+    assert _launch.launches['chivi_mf'] == n_iters
+    assert _launch.replayed['chivi_mf'] == n_iters - WINDOW
     assert math.isfinite(out['khat'])
-    cops.reset_launches()
+    _launch.reset_launches()
     out = pt.validated_vi_multistart(model, fam, init, n_iters, n_starts=8,
                                      perturb_scale=0.1,
                                      objective_and_grad=obj,
                                      n_bound_samples=20000, device=cuda)
-    assert cops.launches['chivi_mf'] == n_iters
+    assert _launch.launches['chivi_mf'] == n_iters
     assert np.all(np.isfinite(np.asarray(out['khat'])))

@@ -27,7 +27,7 @@ import torch
 
 from viabel_tpu_torch.families import mean_field_t_variational_family
 from viabel_tpu_torch.models import eight_schools_cp_model
-from viabel_tpu_torch.ops import _build
+from viabel_tpu_torch.ops import _build, _launch
 from viabel_tpu_torch.ops import lw_stats as ops
 
 pytestmark = pytest.mark.cuda
@@ -71,10 +71,10 @@ def test_transform_score_partials_matches_plain(cuda, dtype, n, df):
     model, z, mean, log_scale = _inputs(n, dtype, cuda)
     if df is None:  # the Gaussian family's standard normal base
         z = torch.randn(z.shape, dtype=dtype, device=cuda)
-    before = ops.launches['transform_score_partials']
+    before = _launch.launches['transform_score_partials']
     lw, parts = ops.transform_score_partials(
         z, mean, log_scale, model.kernel, model.kernel_data, df)
-    assert ops.launches['transform_score_partials'] == before + 1
+    assert _launch.launches['transform_score_partials'] == before + 1
     lw_p, parts_p = ops.transform_score_partials_plain(
         z, mean, log_scale, model.kernel, model.kernel_data, df)
     torch.cuda.synchronize()
@@ -190,10 +190,10 @@ def test_gaussian_sample_score_partials_matches_plain(cuda, dtype, n,
              else _regression(model_name == 'robust'))
     mean, log_std = _fit(model, dtype, cuda, widen=1.0)
     seed, offset = 2 ** 63 + n, 7
-    before = gops.launches['gaussian_sample_score_partials']
+    before = _launch.launches['gaussian_sample_score_partials']
     lw, parts = gops.gaussian_sample_score_partials(
         mean, log_std, n, seed, offset, model.kernel, model.kernel_data)
-    assert gops.launches['gaussian_sample_score_partials'] == before + 1
+    assert _launch.launches['gaussian_sample_score_partials'] == before + 1
     lw_p, parts_p = gops.gaussian_sample_score_partials_plain(
         mean, log_std, n, seed, offset, model.kernel, model.kernel_data)
     torch.cuda.synchronize()
@@ -268,10 +268,10 @@ def test_transform_score_partials_ncp_and_funnel_match_plain(cuda, dtype, n,
     g = torch.Generator(device=cuda).manual_seed(n)
     z = (fam.base_sample(g, n, dtype) if df is not None else
          torch.randn((n, model.dim), generator=g, dtype=dtype, device=cuda))
-    before = ops.launches['transform_score_partials']
+    before = _launch.launches['transform_score_partials']
     lw, parts = ops.transform_score_partials(
         z, mean, log_scale, model.kernel, model.kernel_data, df)
-    assert ops.launches['transform_score_partials'] == before + 1
+    assert _launch.launches['transform_score_partials'] == before + 1
     lw_p, parts_p = ops.transform_score_partials_plain(
         z, mean, log_scale, model.kernel, model.kernel_data, df)
     torch.cuda.synchronize()
@@ -442,9 +442,9 @@ def test_philox_normal_tiles_match_plain(cuda, dtype, start, n, d):
     with an odd n d and a start that is odd or crosses 2^32."""
     from viabel_tpu_torch.ops import gaussian_lw as gops
     from viabel_tpu_torch.ops.philox import philox_normal_plain
-    before = gops.launches['philox_normal']
+    before = _launch.launches['philox_normal']
     z = gops.philox_normal(n, d, 99, 3, start, dtype, cuda)
-    assert gops.launches['philox_normal'] == before + 1
+    assert _launch.launches['philox_normal'] == before + 1
     z_p = philox_normal_plain(n, d, 99, 3, start, dtype, cuda)
     torch.cuda.synchronize()
     tol = 1e-12 if dtype == torch.float64 else 2e-6  # last-bit log/sincos
@@ -476,10 +476,10 @@ def _plain_stats(lw):
                                RAGGED_N, 2_500_000, N_ABOVE_K3_GRID])
 def test_lw_stats_match_plain(cuda, dtype, n):
     lw = _lw(n, dtype, cuda, seed=n)
-    before = dict(ops.launches)
+    before = dict(_launch.launches)
     stats = ops.lw_stats(lw)
-    assert ops.launches['lw_partials'] == before['lw_partials'] + 1
-    assert ops.launches['combine_partials'] == before['combine_partials'] + 1
+    assert _launch.launches['lw_partials'] == before['lw_partials'] + 1
+    assert _launch.launches['combine_partials'] == before['combine_partials'] + 1
     _assert_stats_close(stats, _plain_stats(lw), TOL[dtype]['rtol'])
 
 
@@ -489,11 +489,11 @@ def test_lw_stats_match_plain(cuda, dtype, n):
 def test_transform_score_stats_match_plain(cuda, dtype, n):
     model, z, mean, log_scale = _inputs(n, dtype, cuda, seed=n)
     args = (z, mean, log_scale, model.kernel, model.kernel_data, 40.0)
-    before = dict(ops.launches)
+    before = dict(_launch.launches)
     lw, stats = ops.transform_score_stats(*args)
-    assert ops.launches['transform_score_partials'] == \
+    assert _launch.launches['transform_score_partials'] == \
         before['transform_score_partials'] + 1
-    assert ops.launches['combine_partials'] == before['combine_partials'] + 1
+    assert _launch.launches['combine_partials'] == before['combine_partials'] + 1
     lw_p, parts_p = ops.transform_score_partials_plain(*args)
     tol = TOL[dtype]
     np.testing.assert_allclose(lw.cpu().numpy(), lw_p.cpu().numpy(),

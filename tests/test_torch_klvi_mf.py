@@ -27,6 +27,7 @@ import torch
 import viabel_tpu_torch as pt
 from viabel_tpu_torch.models import eight_schools_cp_model as tcp
 from viabel_tpu_torch.models import eight_schools_ncp_model as tncp
+from viabel_tpu_torch.ops import _launch
 from viabel_tpu_torch.ops import adagrad as aops
 from viabel_tpu_torch.ops import chivi_mf as cops
 from viabel_tpu_torch.ops import klvi_mf as kops
@@ -292,10 +293,13 @@ def test_dispatch_rule(case):
         assert getattr(_batched_step(obj, None), 'fused', None) is None
     if body is None:
         return
-    assert isinstance(body, cops.ChiviMeanField if case == 'chivi'
-                      else kops.KlviMeanField)
-    assert body.family_name in kops.FAMILIES
-    assert body.model.kernel in kops.MODELS
+    assert type(body) is mf_kernels.MeanFieldBody
+    assert body.name == ('chivi_mf' if case == 'chivi' else 'klvi_mf')
+    # the family rides in the first own argument: CHIVI's t flag, KLVI's
+    # entropy constant (0 for the t family)
+    assert (body.own[0] == (1 if case == 'chivi' else 0)) == (
+        not case.startswith('mf_gaussian'))
+    assert body.model.kernel in mf_kernels.MODELS
     param = torch.zeros(2 * D, dtype=torch.float64)
     draws = torch.zeros(4, 20, D, dtype=torch.float64)
     assert not body.engages(param, draws)      # the CPU
@@ -403,10 +407,10 @@ def test_kernel_matches_plain(cuda, family, model, runs, dtype):
         p, block, counter = p[0], block[0], counter[:1].clone()
     _, _, obj = _port(family, model)
     evaluate = obj.fused.bind(p, block, counter)
-    before = kops.launches['klvi_mf']
+    before = _launch.launches['klvi_mf']
     value, grad, log_norm = evaluate()
     assert log_norm is None
-    assert kops.launches['klvi_mf'] == before + 1
+    assert _launch.launches['klvi_mf'] == before + 1
     want_v, want_g = kops.klvi_mf_plain(obj.objective, p, block, counter)
     vals = value.reshape(-1).cpu().double().numpy()
     wv = want_v.reshape(-1).cpu().double().numpy()
@@ -441,11 +445,11 @@ def _fit_pair(cuda, family, model, dtype, K, n_iters=300):
         return _adagrad_runs(o, None, n_iters, WINDOW, lr, EPS, inits, block,
                              keep_history=True, driver=driver)
 
-    kops.reset_launches()
+    _launch.reset_launches()
     fused = run(obj, 'graph')
-    counts = kops.launches['klvi_mf'], kops.replayed['klvi_mf']
+    counts = _launch.launches['klvi_mf'], _launch.replayed['klvi_mf']
     plain = run(autograd, 'eager')
-    assert kops.launches['klvi_mf'] == counts[0]  # autograd: no launch
+    assert _launch.launches['klvi_mf'] == counts[0]  # autograd: no launch
     return fused, counts, plain
 
 
@@ -497,11 +501,11 @@ def test_resumed_run_launches_once_an_iteration(cuda):
     _advance(wrapped, whole, block, 0, n_iters, WINDOW, driver='graph')
     resumed = fresh()
     _advance(wrapped, resumed, block, 0, first, WINDOW, driver='graph')
-    kops.reset_launches()
+    _launch.reset_launches()
     _advance(wrapped, resumed, block, first, n_iters - first, WINDOW,
              driver='graph')
-    assert kops.launches['klvi_mf'] == n_iters - first
-    assert kops.replayed['klvi_mf'] == n_iters - first
+    assert _launch.launches['klvi_mf'] == n_iters - first
+    assert _launch.replayed['klvi_mf'] == n_iters - first
     assert torch.equal(resumed.param, whole.param)
     assert torch.equal(resumed.values, whole.values)
 
@@ -518,22 +522,22 @@ def test_sweep_and_mesh_batch_engage_the_kernel(cuda):
     fam = pt.mean_field_t_variational_family(D, DF)
     init = torch.zeros(2 * D, device=cuda)
     n_iters = 200
-    kops.reset_launches()
+    _launch.reset_launches()
     out = pt.validated_vi_sweep(model, fam, init, n_iters,
                                 learning_rates=[0.005, 0.01, 0.02],
                                 n_bound_samples=20000, device=cuda)
-    assert kops.launches['klvi_mf'] == n_iters
-    assert kops.replayed['klvi_mf'] == n_iters - WINDOW
+    assert _launch.launches['klvi_mf'] == n_iters
+    assert _launch.replayed['klvi_mf'] == n_iters - WINDOW
     assert np.all(np.isfinite(np.asarray(out['khat'])))
-    kops.reset_launches()
+    _launch.reset_launches()
     mesh = make_mesh(('chain',), devices=['cuda:0'] * 2)
     out = pt.validated_vi_multistart(model, fam, init, n_iters, n_starts=4,
                                      perturb_scale=0.1,
                                      n_bound_samples=20000, mesh=mesh)
-    assert kops.launches['klvi_mf'] == 2 * n_iters
+    assert _launch.launches['klvi_mf'] == 2 * n_iters
     assert np.all(np.isfinite(np.asarray(out['khat'])))
-    kops.reset_launches()
+    _launch.reset_launches()
     out = pt.validated_vi(model, fam, init, n_iters, n_bound_samples=20000,
                           device=cuda)
-    assert kops.launches['klvi_mf'] == n_iters
+    assert _launch.launches['klvi_mf'] == n_iters
     assert math.isfinite(out['khat'])

@@ -14,7 +14,7 @@ import pytest
 import torch
 from scipy import stats
 
-from viabel_tpu_torch.ops import gaussian_lw, philox
+from viabel_tpu_torch.ops import _launch, gaussian_lw, philox
 
 MASK = 0xFFFFFFFF
 
@@ -138,10 +138,10 @@ def test_seed_from_generator_and_validation():
 
 
 def test_wrapper_takes_the_plain_version_on_the_cpu():
-    before = dict(gaussian_lw.launches)
+    before = dict(_launch.launches)
     z = gaussian_lw.philox_normal(100, 7, 99, 2, 10, torch.float64, 'cpu')
     assert torch.equal(z, philox.philox_normal_plain(100, 7, 99, 2, 10,
                                                      torch.float64))
-    assert gaussian_lw.launches == before
+    assert _launch.launches == before
     with pytest.raises(TypeError):
         gaussian_lw.philox_normal(10, 2, 0, dtype=torch.float16)

@@ -23,7 +23,7 @@ from torch.profiler import ProfilerActivity, profile
 import viabel_tpu_torch as pt
 from viabel_tpu_torch import _device, _trace, optimizers
 from viabel_tpu_torch.models import eight_schools_cp_model
-from viabel_tpu_torch.ops import adagrad as aops
+from viabel_tpu_torch.ops import _launch
 from viabel_tpu_torch.utils import count_compilations
 
 pytestmark = pytest.mark.filterwarnings(
@@ -251,7 +251,7 @@ def _loops_with_spans(fn):
 
 def test_no_span_per_iteration_or_replay():
     for fn in (optimizers._adagrad_eager, optimizers._adagrad_graph,
-               optimizers._adagrad_iteration, aops.replay):
+               optimizers._adagrad_iteration, _device.replay):
         assert _loops_with_spans(fn) == [], fn.__name__
     counts = []
     for n_iters in (20, 60):
@@ -273,12 +273,12 @@ def test_counters_count_as_before(traced, monkeypatch):
     n_iters = 40
 
     def body():
-        before = aops.launches['adagrad_step'], aops.replayed['adagrad_step']
+        before = _launch.launches['adagrad_step'], _launch.replayed['adagrad_step']
         with count_compilations() as n:
             _fit(False, n_iters=n_iters)
             _fit(True, n_iters=n_iters)
-        return (aops.launches['adagrad_step'] - before[0],
-                aops.replayed['adagrad_step'] - before[1], n[0])
+        return (_launch.launches['adagrad_step'] - before[0],
+                _launch.replayed['adagrad_step'] - before[1], n[0])
 
     counted = _profiled(body)[0] if traced else body()
     # the CPU runs the step's plain version eagerly: no launch, no capture
@@ -336,13 +336,13 @@ def test_spans_share_the_device_clock(cuda, objective, n_mc):
     pt.validated_vi(model, fam, init, n_iters, **kw)    # builds the kernels
     g = torch.Generator(device=cuda).manual_seed(5)
     torch.cuda.synchronize()
-    before = aops.launches['adagrad_step'], aops.replayed['adagrad_step']
+    before = _launch.launches['adagrad_step'], _launch.replayed['adagrad_step']
     with count_compilations() as n:
         _, recs = _profiled(lambda: pt.validated_vi(
             model, fam, init, n_iters, generator=g, **kw), cuda=True)
     assert n[0] == n_graphs
-    assert aops.launches['adagrad_step'] - before[0] == n_iters
-    assert aops.replayed['adagrad_step'] - before[1] == n_iters - window
+    assert _launch.launches['adagrad_step'] - before[0] == n_iters
+    assert _launch.replayed['adagrad_step'] - before[1] == n_iters - window
     spans = _spans(recs)
     names = collections.Counter(r[0] for r in spans)
     assert names['vt.fit'] == names['vt.optimize'] == 1

@@ -14,8 +14,10 @@ so `weighted_moments`, `central_moments` and the covariance products never
 run in TF32.
 
 `pick_driver` states how a loop body runs (captured in a CUDA graph and
-replayed, or eagerly); `capture` is the package's one way to capture a body,
-and `between_captures` keeps other threads' device work away from one.
+replayed, or eagerly); `capture` is the package's one way to capture a body
+and `replay` its one way to replay one, counting the kernel launches that
+the capture recorded (`ops._launch`); `between_captures` keeps other
+threads' device work away from a capture.
 """
 import contextlib
 import threading
@@ -23,9 +25,10 @@ import threading
 import torch
 
 from ._trace import span
+from .ops._launch import launches, recording, replayed
 
 __all__ = ['resolve_device', 'fp32_matmul_policy', 'default_generator',
-           'pick_driver', 'capture', 'between_captures']
+           'pick_driver', 'capture', 'replay', 'between_captures']
 
 # A CUDA graph capture in PyTorch's default ("global") mode fails if any
 # thread of the process makes an unsafe CUDA call (an allocation, a
@@ -43,17 +46,29 @@ _capture_counters = []
 
 def capture(body, stream):
     """``body()`` captured on `stream` as a `torch.cuda.CUDAGraph`, under
-    the process-wide capture lock.  A failed capture raises."""
+    the process-wide capture lock; the graph carries the kernel launches
+    the capture recorded (``graph.launches``).  A failed capture raises."""
     graph = torch.cuda.CUDAGraph()
-    with span('capture'), torch.cuda.stream(stream), _capture_lock:
+    with span('capture'), torch.cuda.stream(stream), _capture_lock, \
+            recording() as record:
         graph.capture_begin()
         try:
             body()
         finally:
             graph.capture_end()
+    graph.launches = record
     for counter in _capture_counters:
         counter[0] += 1
     return graph
+
+
+def replay(graph):
+    """Replay a graph that `capture` made on the current stream, and count
+    the kernel launches it recorded."""
+    graph.replay()
+    for name, n in graph.launches.items():
+        launches[name] += n
+        replayed[name] += n
 
 
 @contextlib.contextmanager

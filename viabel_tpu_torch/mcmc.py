@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from ._device import (capture, default_generator, on_device, pick_driver,
-                      resolve_device)
+                      replay, resolve_device)
 from .diagnostics import compute_R_hat
 from .models.external import is_host_callback
 
@@ -205,7 +205,7 @@ def _run_graph(body, n, device):
         graph = capture(body, side)
     main.wait_stream(side)
     for _ in range(n - warm):
-        graph.replay()
+        replay(graph)
         transitions['replayed'] += 1
 
 

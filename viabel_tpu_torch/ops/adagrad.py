@@ -10,7 +10,7 @@ JAX package's vmapped scan of `validated_vi_multistart` and
 `validated_vi_sweep`).  The iteration it runs is the state's int64
 ``counter`` (one slot a run), which the step advances, so the same launch
 serves every iteration and `optimizers._adagrad_run` can replay it from a
-CUDA graph (`replay`).  An objective without a log-norm passes
+CUDA graph.  An objective without a log-norm passes
 ``log_norm=None``, and the step writes 0 into the ring and the history,
 so no tensor of zeros is made at every iteration.
 
@@ -22,26 +22,21 @@ registers, any other window takes the runtime-window instance.  A launch
 the card refuses raises.
 
 Each wrapper takes the plain version only for a tensor on the CPU; for a
-CUDA tensor it launches the kernel (building it on first use) or raises.
-`launches` counts executions of the kernel: one per launch outside a graph
-capture (a capture records the launch and runs nothing), and, through
-`replay`, one per step that a replayed graph runs; `replayed` counts the
-latter alone.
+CUDA tensor it launches the kernel (building it on first use) or raises,
+through `ops._launch`, which counts the launches and the replayed ones.
 """
 import ctypes
-import functools
 import math
 from typing import NamedTuple, Optional
 
 import torch
 
-from . import _build
+from ._launch import Library
 from .lw_stats import check_tensor
 
 __all__ = ['AdagradState', 'new_state', 'restore_state', 'host_state',
            'LaunchShape', 'launch_shape', 'adagrad_step',
-           'adagrad_step_plain', 'launch_floor', 'replay', 'launches',
-           'replayed', 'reset_launches']
+           'adagrad_step_plain', 'launch_floor']
 
 # the window the kernel unrolls (optimizers.adagrad_optimize's default and
 # every path's); any other window takes the runtime-window instance
@@ -50,16 +45,6 @@ UNROLLED_WINDOW = 10
 # thread each; a run with more columns is a cluster of such blocks
 BLOCK_BYTES = 2048
 MAX_CLUSTER, PORTABLE_CLUSTER = 16, 8
-
-launches = {'adagrad_step': 0}
-replayed = {'adagrad_step': 0}  # the part of `launches` that replays ran
-
-
-def reset_launches():
-    for counts in (launches, replayed):
-        for k in counts:
-            counts[k] = 0
-
 
 class AdagradState(NamedTuple):
     """The device-side state of a windowed-adagrad run, or of a batch of
@@ -205,21 +190,8 @@ _SIGNATURES = {
                                    ctypes.c_longlong, ctypes.c_double, _int,
                                    _int, _int],
 }
-_SUFFIX = {torch.float32: 'f32', torch.float64: 'f64'}
-
-
-@functools.lru_cache(maxsize=None)
-def _lib():
-    """The built library with its entry points' C signatures declared."""
-    lib = _build.load('adagrad')
-    for name, argtypes in _SIGNATURES.items():
-        for suffix in _SUFFIX.values():
-            fn = getattr(lib, '{}_{}'.format(name, suffix))
-            fn.argtypes = argtypes + [_ptr]  # + the stream
-            fn.restype = ctypes.c_int
-    lib.launch_floor.argtypes = [_int, _int, _int, _ptr]
-    lib.launch_floor.restype = ctypes.c_int
-    return lib
+_LIB = Library('adagrad', _SIGNATURES,
+               helpers={'launch_floor': [_int, _int, _int, _ptr]})
 
 
 def _check(state, grad, value, log_norm):
@@ -292,15 +264,13 @@ def adagrad_step(state, grad, value, log_norm):
     _check(state, grad, value, log_norm)
     if state.param.device.type == 'cpu':
         return adagrad_step_plain(state, grad, value, log_norm)
-    device, dtype = state.param.device, state.param.dtype
-    fn = getattr(_lib(), 'adagrad_step_{}'.format(_SUFFIX[dtype]))
+    dtype = state.param.dtype
     params = state.params.data_ptr() if state.params is not None else None
     K, P = state.counter.shape[0], state.param.shape[-1]
     window = state.grads.shape[-2]
     shape = launch_shape(K, P, window, dtype)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device)
-        rc = fn(grad.data_ptr(), value.data_ptr(),
+    _LIB.launch('adagrad_step', state.param.device, dtype, grad.data_ptr(),
+                value.data_ptr(),
                 None if log_norm is None else log_norm.data_ptr(),
                 state.lr.data_ptr(), state.counter.data_ptr(),
                 state.param.data_ptr(), state.grads.data_ptr(),
@@ -309,13 +279,7 @@ def adagrad_step(state, grad, value, log_norm):
                 state.tail_sum.data_ptr(), K, P, window,
                 state.values.shape[-1], state.tail_start, state.epsilon,
                 int(shape.unrolled), shape.threads, shape.cluster,
-                stream.cuda_stream)
-        capturing = torch.cuda.is_current_stream_capturing()
-    if rc != 0:
-        raise RuntimeError('adagrad_step launch ({}) failed: CUDA error {}'
-                           .format(shape.describe(), rc))
-    if not capturing:
-        launches['adagrad_step'] += 1
+                shape=shape)
 
 
 def launch_floor(shape, device='cuda'):
@@ -324,16 +288,8 @@ def launch_floor(shape, device='cuda'):
     floor under a launch of that size.  It is no step and counts none."""
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device)
-        rc = _lib().launch_floor(shape.grid, shape.threads, shape.cluster,
-                                 stream.cuda_stream)
+        rc = _LIB.lib.launch_floor(shape.grid, shape.threads,
+                                   shape.cluster, stream.cuda_stream)
     if rc != 0:
         raise RuntimeError('launch_floor ({}) failed: CUDA error {}'.format(
             shape.describe(), rc))
-
-
-def replay(graph, steps):
-    """Replay a captured CUDA graph that holds `steps` launches of the step
-    kernel on the current stream, and count them."""
-    graph.replay()
-    launches['adagrad_step'] += steps
-    replayed['adagrad_step'] += steps

@@ -21,32 +21,22 @@ Two CUDA kernels from ``csrc/gaussian_lw.cu`` (see the note at its top):
 The stream is `ops.philox`'s: the plain versions draw the same uniforms
 bit for bit, so a CPU run and a card run of one ``(seed, offset)`` score
 the same samples.  Each wrapper takes the plain version only for a tensor
-on the CPU; on CUDA it launches the kernel or raises.  `launches` counts
-kernel launches.  `philox_bits` runs the bare generator on given counters,
-for the checks on the card; it is on no path and is not counted.
+on the CPU; on CUDA it launches the kernel or raises (`ops._launch`, which
+counts the launches).  `philox_bits` runs the bare generator on given
+counters, for the checks on the card; it is on no path and is not counted.
 """
 import ctypes
-import functools
 
 import torch
 
-from . import _build
 from . import lw_stats as _lw
+from ._launch import Library
 from .philox import _check_stream, philox_normal_plain
 
 __all__ = [
-    'launches', 'reset_launches',
     'gaussian_sample_score_partials', 'gaussian_sample_score_partials_plain',
     'philox_normal', 'philox_bits',
 ]
-
-launches = {'gaussian_sample_score_partials': 0, 'philox_normal': 0}
-
-
-def reset_launches():
-    for k in launches:
-        launches[k] = 0
-
 
 _ptr = ctypes.c_void_p
 _u64, _u32 = ctypes.c_ulonglong, ctypes.c_uint
@@ -57,25 +47,9 @@ _SIGNATURES = {
     'philox_normal': [ctypes.c_longlong, ctypes.c_int, _u64, _u64, _u32,
                       _ptr],
 }
-
-
-@functools.lru_cache(maxsize=None)
-def _lib():
-    """The built library with every entry point's C signature declared."""
-    lib = _build.load('gaussian_lw')
-    for name, argtypes in _SIGNATURES.items():
-        for suffix in ('f32', 'f64'):
-            fn = getattr(lib, '{}_{}'.format(name, suffix))
-            fn.argtypes = argtypes + [_ptr]  # + the stream
-            fn.restype = ctypes.c_int
-    lib.philox_bits.argtypes = [_ptr, ctypes.c_longlong, _u64, _ptr, _ptr]
-    lib.philox_bits.restype = ctypes.c_int
-    _lw.check_layout(lib, 'gaussian_lw')
-    return lib
-
-
-def _launch(name, device, dtype, *args):
-    _lw.launch(_lib(), launches, name, device, dtype, *args)
+_LIB = Library('gaussian_lw', _SIGNATURES, check=_lw.check_layout,
+               helpers={'philox_bits': [_ptr, ctypes.c_longlong, _u64, _ptr,
+                                        _ptr]})
 
 
 def gaussian_sample_score_partials_plain(mean, log_std, n, seed, offset,
@@ -114,10 +88,10 @@ def gaussian_sample_score_partials(mean, log_std, n, seed, offset, kernel,
     lw = torch.empty((n,), dtype=mean.dtype, device=mean.device)
     partials = torch.empty((_lw.n_chunks(n), _lw.NPART), dtype=mean.dtype,
                            device=mean.device)
-    _launch('gaussian_sample_score_partials', mean.device, mean.dtype,
-            mean.data_ptr(), log_std.data_ptr(), n, d, seed, offset, start,
-            float(alpha), ctypes.byref(spec), lw.data_ptr(),
-            partials.data_ptr())
+    _LIB.launch('gaussian_sample_score_partials', mean.device, mean.dtype,
+                mean.data_ptr(), log_std.data_ptr(), n, d, seed, offset,
+                start, float(alpha), ctypes.byref(spec), lw.data_ptr(),
+                partials.data_ptr())
     return lw, partials
 
 
@@ -141,8 +115,8 @@ def philox_normal(n, d, seed, offset=0, start=0, dtype=torch.float32,
                          .format(device))
     z = torch.empty((n, d), dtype=dtype, device=device)
     if n:
-        _launch('philox_normal', z.device, dtype, n, d, start, seed, offset,
-                z.data_ptr())
+        _LIB.launch('philox_normal', z.device, dtype, n, d, start, seed,
+                    offset, z.data_ptr())
     return z
 
 
@@ -157,7 +131,7 @@ def philox_bits(counters, seed):
     c32 = (counters - ((counters >> 31) << 32)).to(torch.int32).contiguous()
     out = torch.empty_like(c32)
     with torch.cuda.device(counters.device):
-        rc = _lib().philox_bits(
+        rc = _LIB.lib.philox_bits(
             c32.data_ptr(), c32.shape[0], seed, out.data_ptr(),
             torch.cuda.current_stream(counters.device).cuda_stream)
     if rc != 0:

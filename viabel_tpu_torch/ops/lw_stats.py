@@ -47,11 +47,10 @@ retired combine formed variances as ``s2/n - mean^2``, which cancels in
 f32; neither version here ever forms a raw second moment.
 
 Each wrapper takes the plain version only for a tensor on the CPU; for a
-CUDA tensor it launches the kernel (building it on first use) or raises.
-`launches` counts kernel launches, one per wrapper call that launched.
+CUDA tensor it launches the kernel (building it on first use) or raises,
+through `ops._launch`, which counts the launches.
 """
 import ctypes
-import functools
 import math
 
 import torch
@@ -60,11 +59,11 @@ from ..distributions import _LOG_2PI, t_lognorm
 from ..models.eight_schools import cp_log_density, ncp_log_density
 from ..models.funnel import funnel_log_density
 from ..models.regression import regression_log_density
-from . import _build
+from ._launch import SUFFIX, Library
 from .limits import MAX_DIM, MAX_STAGED_BYTES, regression_row, staged_bytes
 
 __all__ = [
-    'CHUNK', 'MAX_DIM', 'KERNEL_MODELS', 'launches', 'reset_launches',
+    'CHUNK', 'MAX_DIM', 'KERNEL_MODELS',
     'transform_score_partials', 'lw_partials', 'combine_partials',
     'transform_score_partials_plain', 'lw_partials_plain',
     'combine_partials_plain', 'lw_stats', 'transform_score_stats',
@@ -79,15 +78,6 @@ KERNEL_MODELS = ('eight_schools_cp', 'regression', 'eight_schools_ncp',
                  'funnel')
 _SCHOOLS = 8          # the CUDA eight-schools densities unroll J = 8
 _FUNNEL_DIM = 2
-
-launches = {'transform_score_partials': 0, 'lw_partials': 0,
-            'combine_partials': 0}
-
-
-def reset_launches():
-    for k in launches:
-        launches[k] = 0
-
 
 class ModelSpec(ctypes.Structure):
     """ctypes mirror of ``bound_pass::ModelSpec`` (csrc/bound_pass.cuh)."""
@@ -113,20 +103,6 @@ _SIGNATURES = {
     'lw_partials': _LW_ARGS,
     'combine_partials': [_ptr, ctypes.c_longlong, ctypes.c_double, _ptr],
 }
-_SUFFIX = {torch.float32: 'f32', torch.float64: 'f64'}
-
-
-@functools.lru_cache(maxsize=None)
-def _lib():
-    """The built library with every entry point's C signature declared."""
-    lib = _build.load('lw_stats')
-    for name, argtypes in _SIGNATURES.items():
-        for suffix in _SUFFIX.values():
-            fn = getattr(lib, '{}_{}'.format(name, suffix))
-            fn.argtypes = argtypes + [_ptr]  # + the stream
-            fn.restype = ctypes.c_int
-    check_layout(lib, 'lw_stats')
-    return lib
 
 
 def check_layout(lib, name):
@@ -144,25 +120,13 @@ def check_layout(lib, name):
                            'ModelSpec layout: {}'.format(name, got))
 
 
-def launch(lib, counts, name, device, dtype, *args):
-    """Launch ``<name>_<f32|f64>`` of `lib` on `device`'s current stream,
-    raise if CUDA refused it, and count it in ``counts[name]``."""
-    fn = getattr(lib, '{}_{}'.format(name, _SUFFIX[dtype]))
-    with torch.cuda.device(device):
-        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError('{} launch failed: CUDA error {}'.format(name, rc))
-    counts[name] += 1
-
-
-def _launch(name, device, dtype, *args):
-    launch(_lib(), launches, name, device, dtype, *args)
+_LIB = Library('lw_stats', _SIGNATURES, check=check_layout)
 
 
 def check_tensor(name, t, dtype, device, shape=None):
     if not isinstance(t, torch.Tensor):
         raise TypeError('{} must be a tensor'.format(name))
-    if t.dtype not in _SUFFIX or (dtype is not None and t.dtype != dtype):
+    if t.dtype not in SUFFIX or (dtype is not None and t.dtype != dtype):
         raise TypeError('{} must be float32 or float64 (and match the other '
                         'inputs), got {}'.format(name, t.dtype))
     if device is not None and t.device != device:
@@ -376,11 +340,11 @@ def transform_score_partials(z, mean, log_scale, kernel, kernel_data,
     partials = torch.empty((n_chunks(n), NPART), dtype=z.dtype,
                            device=z.device)
     base_kind = 0 if df is None else 1  # standard normal / Student-t(df)
-    _launch('transform_score_partials', z.device, z.dtype, z.data_ptr(),
-            mean.data_ptr(), log_scale.data_ptr(), n, d, base_kind,
-            float(df or 0.0), t_lognorm(df) if df is not None else 0.0,
-            float(alpha), ctypes.byref(spec), lw.data_ptr(),
-            partials.data_ptr())
+    _LIB.launch('transform_score_partials', z.device, z.dtype, z.data_ptr(),
+                mean.data_ptr(), log_scale.data_ptr(), n, d, base_kind,
+                float(df or 0.0), t_lognorm(df) if df is not None else 0.0,
+                float(alpha), ctypes.byref(spec), lw.data_ptr(),
+                partials.data_ptr())
     return lw, partials
 
 
@@ -394,8 +358,8 @@ def lw_partials(lw, alpha=2.0):
     n = lw.shape[0]
     partials = torch.empty((n_chunks(n), NPART), dtype=lw.dtype,
                            device=lw.device)
-    _launch('lw_partials', lw.device, lw.dtype, lw.data_ptr(), n,
-            float(alpha), partials.data_ptr())
+    _LIB.launch('lw_partials', lw.device, lw.dtype, lw.data_ptr(), n,
+                float(alpha), partials.data_ptr())
     return partials
 
 
@@ -408,9 +372,9 @@ def combine_partials(partials, alpha=2.0):
     if partials.device.type == 'cpu':
         return combine_partials_plain(partials, alpha)
     out = torch.empty((5,), dtype=partials.dtype, device=partials.device)
-    _launch('combine_partials', partials.device, partials.dtype,
-            partials.data_ptr(), partials.shape[0], float(alpha),
-            out.data_ptr())
+    _LIB.launch('combine_partials', partials.device, partials.dtype,
+                partials.data_ptr(), partials.shape[0], float(alpha),
+                out.data_ptr())
     return out
 
 

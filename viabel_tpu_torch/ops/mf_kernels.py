@@ -1,33 +1,32 @@
-"""The launch plumbing that the value-and-gradient kernels of the mean-field
-families on the eight-schools densities share (``csrc/klvi_mf.cu``).
+"""The hand-written body of a presampled objective on a mean-field family
+and an eight-schools density: the value-and-gradient kernels of
+``csrc/klvi_mf.cu``, KLVI's (`ops.klvi_mf`) and CHIVI's (`ops.chivi_mf`).
 
-`ops.klvi_mf` (KLVI) and `ops.chivi_mf` (CHIVI) each launch one kernel of
-that library; both take the same families, densities, layouts of the
-presampled draws and device counter, so what decides whether a kernel
-takes an evaluation, the library's entry points, the layout checks and
-the bound launch live here:
+Both kernels take the same families, densities, layouts of the presampled
+draws and device counter, and differ only in their own arguments after the
+model's and in a block's threads, so one body serves both
+(`MeanFieldBody`), with what decides whether a kernel takes an
+evaluation:
 
 - `takes`: the family and density the kernels are written for (the
   mean-field t or Gaussian family of dimension 10 on a `models.Model`
   carrying an eight-schools CUDA density);
-- `engages`: an evaluation they take (a CUDA float32 or float64 parameter,
-  (P,) or (K, P), with its presampled block beside it, the rows of a run
-  contiguous);
-- `bind`: one kernel's launch at a run's tensors, its arguments made once,
-  writing into output buffers allocated once a run;
-- `counters`: a kernel's launch counters (`launches`, `replayed`).
+- `MeanFieldBody.engages`: an evaluation they take (a CUDA float32 or
+  float64 parameter, (P,) or (K, P), with its presampled block beside it,
+  the rows of a run contiguous);
+- `MeanFieldBody.bind`: the kernel's launch at a run's tensors, its
+  arguments made once, writing into output buffers allocated once a run.
 """
 import ctypes
-import functools
 
 import torch
 
 from ..models.base import Model
-from . import _build
+from ._launch import SUFFIX, Library
 from .lw_stats import ModelSpec, check_layout, check_tensor, model_spec
 
-__all__ = ['FAMILIES', 'MODELS', 'DIM', 'takes', 'engages', 'bind',
-           'counters', 'pick_rows']
+__all__ = ['FAMILIES', 'MODELS', 'DIM', 'takes', 'MeanFieldBody',
+           'pick_rows']
 
 FAMILIES = ('mf_t', 'mf_gaussian')
 MODELS = ('eight_schools_cp', 'eight_schools_ncp')
@@ -50,40 +49,7 @@ _OWN = {
 # block's threads and its outputs
 _SIGNATURES = {name: _HEAD + own + [ctypes.c_int] + [_ptr] * n_out
                for name, (own, n_out) in _OWN.items()}
-_SUFFIX = {torch.float32: 'f32', torch.float64: 'f64'}
-
-
-def counters(name):
-    """``(launches, replayed, reset_launches, count_replays)`` of kernel
-    `name`: ``launches[name]`` counts its executions, one per launch
-    outside a graph capture (`bind` counts them) and, through
-    ``count_replays(evaluations)``, one per evaluation that a replayed
-    graph runs; ``replayed[name]`` counts the latter alone."""
-    launches = {name: 0}
-    replayed = {name: 0}
-
-    def reset_launches():
-        launches[name] = replayed[name] = 0
-
-    def count_replays(evaluations):
-        """Count `evaluations` of the kernel that a replayed graph ran."""
-        launches[name] += evaluations
-        replayed[name] += evaluations
-
-    return launches, replayed, reset_launches, count_replays
-
-
-@functools.lru_cache(maxsize=None)
-def _lib():
-    """The built library with its entry points' C signatures declared."""
-    lib = _build.load('klvi_mf')
-    for name, argtypes in _SIGNATURES.items():
-        for suffix in _SUFFIX.values():
-            fn = getattr(lib, '{}_{}'.format(name, suffix))
-            fn.argtypes = argtypes + [_ptr]  # + the stream
-            fn.restype = ctypes.c_int
-    check_layout(lib, 'klvi_mf')
-    return lib
+_LIB = Library('klvi_mf', _SIGNATURES, check=check_layout)
 
 
 def takes(var_family, log_density):
@@ -139,20 +105,6 @@ def layout(param, draws):
     return K, n_iters, n_mc, draws.stride(0) if batched else 0
 
 
-def engages(param, draws):
-    """Whether the kernels take an evaluation at `param` (P,) or (K, P) on
-    `draws`, the presampled block of each run: a CUDA parameter of float32
-    or float64 and its draws beside it, the rows of a run contiguous."""
-    if not (isinstance(param, torch.Tensor)
-            and param.device.type == 'cuda' and param.dtype in _SUFFIX):
-        return False
-    try:
-        layout(param, draws)
-    except (TypeError, ValueError):
-        return False
-    return True
-
-
 def _check_counter(param, counter):
     K = param.shape[0] if param.dim() == 2 else 1
     if counter is not None and (
@@ -163,42 +115,63 @@ def _check_counter(param, counter):
                         '{}'.format(K, param.device))
 
 
-def bind(name, counts, model, param, draws, counter, own, max_threads):
-    """``(launch, outputs)``: the launch of entry point `name` (of
-    `param`'s dtype) at the live `param` on the row of `draws` that the
-    live `counter` names (row 0 where it is None), with its `own`
-    arguments after the model's, as a function of no arguments, and the
-    output buffers it writes, allocated here: the value (one a run), the
-    gradient (`param`'s shape) and, for CHIVI, the log-norm (one a run).
-    The arguments are made here, outside any capture, so the launch only
-    issues the kernel; it raises if CUDA refused it and counts itself in
-    ``counts[name]`` outside a graph capture.  A block takes a draw a
-    thread, rounded up to a warp, at most `max_threads` (each thread then
-    takes every `max_threads`-th draw)."""
-    _check_counter(param, counter)
-    K, n_iters, n_mc, run_stride = layout(param, draws)
-    value = param.new_empty(param.shape[:-1])
-    outputs = (value, torch.empty_like(param)) + tuple(
-        torch.empty_like(value) for _ in range(_OWN[name][1] - 2))
-    spec, data = model_spec(model.kernel, model.kernel_data_like(param),
-                            param.device, param.dtype)
-    threads = min(max_threads, -(-n_mc // 32) * 32)
-    args = (param.data_ptr(), draws.data_ptr(), run_stride,
-            None if counter is None else counter.data_ptr(), K, n_iters,
-            n_mc, DIM, ctypes.byref(spec), *own, threads,
-            *(o.data_ptr() for o in outputs))
-    device = param.device
-    fn = getattr(_lib(), '{}_{}'.format(name, _SUFFIX[param.dtype]))
+class MeanFieldBody:
+    """The hand-written body that a presampled objective carries as
+    ``fused`` and the optimizers run in its place on the card: entry point
+    `name` of ``csrc/klvi_mf.cu``, the autograd `objective` it stands for
+    (its plain version's input), the `model`, the entry point's `own`
+    arguments after the model's, and `max_threads`, a block's threads by
+    dtype (a draw a thread, rounded up to a warp, up to there; then each
+    thread takes every `max_threads`-th draw)."""
 
-    def launch():
-        with torch.cuda.device(device):
-            rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
-            capturing = torch.cuda.is_current_stream_capturing()
-        if rc != 0:
-            raise RuntimeError('{} launch failed: CUDA error {}'.format(
-                name, rc))
-        if not capturing:
-            counts[name] += 1
+    def __init__(self, name, objective, model, own, max_threads):
+        self.name = name
+        self.objective = objective
+        self.model = model
+        self.own = own
+        self.max_threads = max_threads
 
-    launch.holds = (spec, data)  # alive as long as the launch
-    return launch, outputs
+    def engages(self, param, draws):
+        """Whether the kernel takes an evaluation at `param` (P,) or (K, P)
+        on `draws`, the presampled block of each run: a CUDA parameter of
+        float32 or float64 and its draws beside it, the rows of a run
+        contiguous; otherwise the autograd body runs."""
+        if not (isinstance(param, torch.Tensor)
+                and param.device.type == 'cuda' and param.dtype in SUFFIX):
+            return False
+        try:
+            layout(param, draws)
+        except (TypeError, ValueError):
+            return False
+        return True
+
+    def bind(self, param, draws, counter):
+        """``evaluate() -> (value, grad, log_norm or None)`` on the card:
+        the launch at the live `param` on the row of `draws` that the live
+        `counter` names (row 0 where it is None), its arguments made here,
+        outside any capture, writing into buffers allocated here, once a
+        run: the value (one a run), the gradient (`param`'s shape) and, for
+        CHIVI, the log-norm (one a run)."""
+        _check_counter(param, counter)
+        K, n_iters, n_mc, run_stride = layout(param, draws)
+        value = param.new_empty(param.shape[:-1])
+        n_out = _OWN[self.name][1]
+        outputs = (value, torch.empty_like(param)) + tuple(
+            torch.empty_like(value) for _ in range(n_out - 2))
+        spec, data = model_spec(self.model.kernel,
+                                self.model.kernel_data_like(param),
+                                param.device, param.dtype)
+        threads = min(self.max_threads[param.dtype], -(-n_mc // 32) * 32)
+        args = (param.data_ptr(), draws.data_ptr(), run_stride,
+                None if counter is None else counter.data_ptr(), K, n_iters,
+                n_mc, DIM, ctypes.byref(spec), *self.own, threads,
+                *(o.data_ptr() for o in outputs))
+        name, device, dtype = self.name, param.device, param.dtype
+        result = outputs + (None,) * (3 - n_out)
+
+        def evaluate():
+            _LIB.launch(name, device, dtype, *args)
+            return result
+
+        evaluate.holds = (spec, data)  # alive as long as the launch
+        return evaluate

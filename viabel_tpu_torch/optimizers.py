@@ -41,14 +41,13 @@ import numpy as np
 import torch
 
 from ._device import (capture, default_generator, on_device, pick_driver,
-                      resolve_device)
+                      replay, resolve_device)
 from ._trace import span, to_host
 from .diagnostics import (compute_R_hat_adaptive, compute_R_hat_halfway,
                           stochastic_iterate_averaging)
 from .objectives import map_draws, stack_draws
 from .ops.adagrad import adagrad_step
 from .ops.adagrad import new_state as new_adagrad_state
-from .ops.adagrad import replay as adagrad_replay
 from .ops.gaussian_lw import philox_normal
 from .ops.philox import fold_in, philox_seed
 
@@ -237,8 +236,7 @@ def _adagrad_graph(objective, fused, state, start, iters, window,
     then the body captured `_GRAPH_ITERS` times (`_FUSED_GRAPH_ITERS` for
     a `fused` body, the hand-written body or None) in one CUDA graph and
     once in another, and those graphs replayed until the iterations are
-    done, ``report(i)`` after each (a `fused` body's replays counted by
-    its ``count_replays``).  A failed capture raises."""
+    done, ``report(i)`` after each.  A failed capture raises."""
     device = state.param.device
     main = torch.cuda.current_stream(device)
     side = torch.cuda.Stream(device)
@@ -261,9 +259,7 @@ def _adagrad_graph(objective, fused, state, start, iters, window,
     with span('replay'):
         for graph, steps, count in graphs:
             for _ in range(count):
-                adagrad_replay(graph, steps)
-                if fused is not None:
-                    fused.count_replays(steps)
+                replay(graph)
                 if report is not None:
                     for j in range(i, i + steps):
                         report(j)

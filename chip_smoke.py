@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port on one CUDA card: build, check, drive.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --kernels-only   # phases 1, 3, 7, 11 and 12 and
+    python3 chip_smoke.py --kernels-only   # phases 1, 3, 7, 11, 12, 25 and
                                            # the step kernel's check and
                                            # time, at stand-in fits; no
                                            # result line
@@ -300,11 +300,24 @@ result line:
     the autograd body's (phases 4, 10 and 23 (a) require it too).  It
     runs right after phase 12, before the long traces of phases 13-15,
     after which the profiler's traces of single launches come back
-    without kernel records.
+    without kernel records;
+25. the Student-t sampler's arithmetic after its generator calls
+    (``ops.t_sample``, ``t_from_uniforms``) at (2.5e6, 10) and (5e6, 10)
+    float32, df 40: ``student_t_sample`` on the card against the same
+    sampler with the plain step in place of the kernel, bit for bit, the
+    generator's next draw equal and two launches counted; then the two
+    launches' times (``ms``, ``device_ms`` for both together) beside the
+    draw's bound (22 values of 4 bytes an element: the uniforms and z
+    read, t written; the two launches move 24) and the plain step's time
+    on the same buffers, and the whole draw's, kernel and plain.  It runs
+    right after phase 24.  Its launches are left out of the kernels
+    line, which counts the paths' own; phase 2 requires two a df-40 draw
+    on its path.
 
 The line before the last is a JSON object with one entry per kernel:
 route, source, the TPU kernel it replaces, launches on the paths of phases
-2, 6, 10, 13, 14, 15 (a) and (b), 17, 18, 19, 21, 22, 23 and 24 (summed), the
+2, 6, 10, 13, 14, 15 (a) and (b), 17, 18, 19, 21, 22, 23 and 24
+(summed), the
 float32 max abs error, its time by
 events around the call (``ms``) and on the card (``device_ms``), the plain
 version's time, its bound (the larger of bytes over 3.35 TB/s and
@@ -483,12 +496,17 @@ REPLACES = {
     'chivi_mf':
         'viabel_tpu/objectives.py:177-222 (black_box_chivi\'s jax.vjp with '
         'a stopped cotangent, in the compiled lax.scan; no Pallas kernel)',
+    't_from_uniforms':
+        'viabel_tpu/distributions.py:42-62, 82-110 (the rejection-free '
+        'Student-t and chi-square construction after its draws, left to '
+        'XLA; no Pallas kernel)',
 }
 SOURCE = {'transform_score_partials': 'lw_stats.cu', 'lw_partials':
           'lw_stats.cu', 'combine_partials': 'lw_stats.cu',
           'gaussian_sample_score_partials': 'gaussian_lw.cu',
           'philox_normal': 'gaussian_lw.cu', 'adagrad_step': 'adagrad.cu',
-          'klvi_mf': 'klvi_mf.cu', 'chivi_mf': 'klvi_mf.cu'}
+          'klvi_mf': 'klvi_mf.cu', 'chivi_mf': 'klvi_mf.cu',
+          't_from_uniforms': 't_sample.cu'}
 # device kernel names in nvcc's output -> the wrapper that launches them
 _MANGLED = (('LoadedDraws', 'transform_score_partials'),
             ('PhiloxDraws', 'gaussian_sample_score_partials'),
@@ -498,7 +516,8 @@ _MANGLED = (('LoadedDraws', 'transform_score_partials'),
             ('philox_bits_kernel', 'philox_bits'),
             ('adagrad_step_kernel', 'adagrad_step'),
             ('klvi_mf_kernel', 'klvi_mf'),
-            ('chivi_mf_kernel', 'chivi_mf'))
+            ('chivi_mf_kernel', 'chivi_mf'),
+            ('t_from_uniforms_kernel', 't_from_uniforms'))
 # the wrapper -> the part of its device kernel's name that a trace shows
 KERNEL_KEY = {wrapper: key for key, wrapper in _MANGLED}
 FLOOR_KEY = 'launch_floor_kernel'  # the empty kernel of csrc/adagrad.cu
@@ -697,6 +716,20 @@ def require_adagrad_steps(launches, runs, path):
                                  path, got[0], got[1], want, want_replayed))
 
 
+def require_t_draws(launches, draws, path):
+    """Each t(40) draw of a path took `t_from_uniforms`: two launches a
+    draw (its two groups of 10 uniforms), none from graph replays."""
+    got = (launches['t_from_uniforms'],
+           launches['t_from_uniforms (replayed)'])
+    log('t_from_uniforms on the {} path: {} launches for {} df-40 '
+        'draws'.format(path, got[0], draws))
+    if got != (2 * draws, 0):
+        raise AssertionError('the {} path launched t_from_uniforms {} times '
+                             '({} replayed) for {} df-40 draws, expected '
+                             '{}'.format(path, got[0], got[1], draws,
+                                         2 * draws))
+
+
 def require_kernel_pair(launches, path):
     """A `run_experiment` path on eight schools ran its KLVI and its CHIVI
     fits each through its kernel: ``klvi_mf`` and ``chivi_mf`` launched,
@@ -792,6 +825,9 @@ def main_path(vt, model, fam):
                                 'combine_partials', 'adagrad_step',
                                 'klvi_mf'), 'eight-schools')
     require_adagrad_steps(launches, [N_ITERS], 'eight-schools')
+    # validated_vi draws t(40) twice (the presampled block, the bound
+    # pass's draws), get_samples_and_log_weights once
+    require_t_draws(launches, 3, 'eight-schools')
     return out, launches
 
 
@@ -2150,10 +2186,12 @@ def moments_fit(model):
 
 
 def kernels_only(vt, model, fam):
-    """``--kernels-only``: phases 3, 7, 11 and 12 alone (every kernel against
-    its plain version and its times at the paths' shapes) at stand-in fits,
-    with no path driven and no result line.  For work on the kernels."""
+    """``--kernels-only``: phases 3, 7, 11, 12 and 25 alone (every kernel
+    against its plain version and its times at the paths' shapes) at
+    stand-in fits, with no path driven and no result line.  For work on
+    the kernels."""
     rows = kernel_checks(model, fam, moments_fit(model))
+    rows['t_from_uniforms'] = t_sample_part()
     rows['adagrad_step'] = step_kernel_check(vt, model, fam)
     rows['adagrad_step']['instances'] = batched_step_check(vt)
     rmodel = regression_model()
@@ -4423,6 +4461,113 @@ def chivi_mf_part(vt):
     return row, path_launches
 
 
+# phase 25: the Student-t sampler's arithmetic after its generator calls
+T_DF, T_SHAPES = 40, ((2_500_000, 10), (5_000_000, 10))
+# operations an element of a df-40 draw: 20 clamps and 19 products, two
+# logs and two differences, then 2 total, the reciprocal, the product by
+# df, the square root and the product by z (a log counted as one)
+OPS_T_ELEMENT = 48
+# values of 4 bytes an element of a df-40 draw: the floor of the draw
+# (its 20 uniforms and z read, t written), and what the two launches move
+# (total written by the first and read by the second besides)
+T_DRAW_VALUES, T_LAUNCH_VALUES = 22, 24
+
+
+def plain_t_draw(seed, shape):
+    """``student_t_sample`` on a card generator of `seed` with the plain
+    step in place of the kernel: the same generator calls, the step as
+    PyTorch operations."""
+    from unittest import mock
+
+    from viabel_tpu_torch.distributions import student_t_sample
+    from viabel_tpu_torch.ops import t_sample
+
+    g = card_generator(seed)
+    with mock.patch.object(t_sample, 'takes', lambda device, dtype: False):
+        return student_t_sample(g, T_DF, shape), g
+
+
+def t_sample_part():
+    """Phase 25: `t_from_uniforms` at T_SHAPES, float32, df 40: the
+    sampler on the card against `plain_t_draw` on a generator of the same
+    seed, bit for bit, the generator's next draw equal, two launches a
+    draw; then the two launches' times on prepared buffers beside the
+    draw's bound (22 values an element; the two launches' own, 24, as
+    ``launch_bound_ms``) and the plain step's time on the same buffers,
+    and the whole draw's, kernel and plain.  Returns the row at
+    (2.5e6, 10), the (5e6, 10) one under ``instances``."""
+    from viabel_tpu_torch.distributions import student_t_sample
+    from viabel_tpu_torch.ops import t_sample
+    from viabel_tpu_torch.ops._launch import launches
+
+    rows = []
+    for i, shape in enumerate(T_SHAPES):
+        before = launches['t_from_uniforms']
+        g = card_generator(250 + i)
+        got = student_t_sample(g, T_DF, shape)
+        got_next = torch.rand(4, generator=g, device='cuda')
+        if launches['t_from_uniforms'] - before != 2:
+            raise AssertionError('a df-40 draw launched t_from_uniforms {} '
+                                 'times, not 2'.format(
+                                     launches['t_from_uniforms'] - before))
+        want, g = plain_t_draw(250 + i, shape)
+        want_next = torch.rand(4, generator=g, device='cuda')
+        if launches['t_from_uniforms'] - before != 2:
+            raise AssertionError('the plain draw launched t_from_uniforms')
+        same = torch.equal(got.view(torch.int32), want.view(torch.int32))
+        log('t_from_uniforms at {}: {} of {} values differ from the plain '
+            'step, the next draw {}'.format(
+                shape, int((got.view(torch.int32)
+                            != want.view(torch.int32)).sum()), got.numel(),
+                'equal' if torch.equal(got_next, want_next) else 'DIFFERS'))
+        if not same or not torch.equal(got_next, want_next):
+            raise AssertionError('t_from_uniforms is not the plain step bit '
+                                 'for bit at {}'.format(shape))
+        del got, want
+        g = card_generator(260 + i)
+        z = torch.randn(shape, generator=g, device='cuda')
+        uniforms = [torch.rand(shape, generator=g, device='cuda')
+                    for _ in range(2 * t_sample.GROUP)]
+        total = torch.empty(shape, device='cuda')
+
+        def kernel():
+            t_sample.t_from_uniforms(uniforms[:10], total, True, False)
+            t_sample.t_from_uniforms(uniforms[10:], total, False, True, z=z,
+                                     df=T_DF)
+
+        def plain():
+            t_sample.t_from_uniforms_plain(uniforms[:10], total, True, False)
+            t_sample.t_from_uniforms_plain(uniforms[10:], total, False, True,
+                                           z=z, df=T_DF)
+
+        n = z.numel()
+        row = timed_row('t_from_uniforms', kernel, plain,
+                        T_DRAW_VALUES * 4 * n, OPS_T_ELEMENT * n, 0.0, n,
+                        label='t_from_uniforms, two launches ({}, df {})'
+                        .format(shape, T_DF))
+        row['launch_bound_ms'] = (T_LAUNCH_VALUES * 4 * n / HBM_BYTES_PER_S
+                                  * 1e3)
+        # the trace's mean is a launch's; the row holds the draw's two
+        if row['device_ms'] is not None:
+            row['device_ms'] *= 2
+        log('t_from_uniforms at {}: {} ms on the card for both launches, '
+            'the draw\'s bound {:.4f} ms ({} values an element), the two '
+            'launches\' {:.4f} ms ({})'.format(
+                shape, fmt_ms(row['device_ms']), row['bound_ms'],
+                T_DRAW_VALUES, row['launch_bound_ms'], T_LAUNCH_VALUES))
+        del z, uniforms, total
+        row['draw_ms'] = median_ms(lambda: student_t_sample(
+            card_generator(7), T_DF, shape))
+        row['plain_draw_ms'] = median_ms(lambda: plain_t_draw(7, shape))
+        log('student_t_sample at {}: {:.4f} ms with the kernel, {:.4f} ms '
+            'plain (events around the whole draw, 21 generator calls '
+            'included)'.format(shape, row['draw_ms'], row['plain_draw_ms']))
+        row['shape'] = list(shape)
+        rows.append(row)
+    torch.cuda.empty_cache()
+    return dict(rows[0], instances=rows[1:])
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -4470,6 +4615,8 @@ def main():
     rows['klvi_mf'], klvi_launches = klvi_mf_part(vt)
     rows['chivi_mf'], chivi_launches = chivi_mf_part(vt)
     phases_done('24 (before the long traces)')
+    rows['t_from_uniforms'] = t_sample_part()
+    phases_done('25')
     path_launches = [launches, r_launches, e_launches, multistart_path(vt)]
     phases_done('13')
     path_launches += [sweep_path(vt), large_d_path(vt)]

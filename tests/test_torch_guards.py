@@ -113,7 +113,8 @@ def test_cuda_resolution_applies_the_fp32_matmul_policy(monkeypatch):
 @pytest.mark.parametrize('source,module', [('lw_stats', 'lw_stats'),
                                            ('gaussian_lw', 'gaussian_lw'),
                                            ('adagrad', 'adagrad'),
-                                           ('klvi_mf', 'mf_kernels')])
+                                           ('klvi_mf', 'mf_kernels'),
+                                           ('t_sample', 't_sample')])
 def test_ctypes_signatures_match_the_c_entry_points(source, module):
     """Every entry point's declared ctypes arguments plus the stream are
     the C function's parameters, one for one: an argument left out of

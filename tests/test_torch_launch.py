@@ -14,7 +14,8 @@ from viabel_tpu_torch.ops import _launch
 
 ENTRY_POINTS = ('transform_score_partials', 'lw_partials',
                 'combine_partials', 'gaussian_sample_score_partials',
-                'philox_normal', 'adagrad_step', 'klvi_mf', 'chivi_mf')
+                'philox_normal', 'adagrad_step', 'klvi_mf', 'chivi_mf',
+                't_from_uniforms')
 
 
 class _Fn:

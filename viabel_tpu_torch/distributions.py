@@ -14,6 +14,8 @@ import math
 
 import torch
 
+from .ops import t_sample
+
 __all__ = [
     'normal_logpdf',
     'diag_normal_logpdf',
@@ -40,7 +42,10 @@ def _log(v):
 
 def _exact_df(df):
     """The integer df of the rejection-free construction, or None where
-    the gamma sampler takes the draw (viabel_tpu/distributions.py:70-72)."""
+    the gamma sampler takes the draw (viabel_tpu/distributions.py:70-72);
+    raises for a df that is not positive."""
+    if not df > 0:
+        raise ValueError('df must be positive (got {})'.format(df))
     df_int = int(df)
     if df != df_int or not 1 <= df_int <= _MAX_EXACT_T_DF:
         return None
@@ -58,53 +63,47 @@ def _chi2_gamma(generator, df, shape, dtype):
     return (2.0 * torch._standard_gamma(alpha, generator=generator)).to(dtype)
 
 
-def _gamma_integer_shape(generator, k, shape, dtype):
-    """Gamma(k, 1) draws for integer ``k`` as ``-sum log u``, with the
-    uniforms grouped into products of at most 10 before each log (a
-    product of 10 uniforms cannot underflow f32)
-    (viabel_tpu/distributions.py:42-62)."""
+def _chi2_exact(generator, df_int, shape, dtype, z=None):
+    """chi2_df = 2 Gamma(df // 2, 1), plus z1^2 when df is odd, with
+    Gamma(k, 1) = -sum log u over k uniforms, grouped into products of at
+    most `t_sample.GROUP` = 10 before each log (a product of 10 uniforms
+    cannot underflow f32) (viabel_tpu/distributions.py:42-62); given the
+    normals `z`, the t draws ``z * sqrt(df / chi2)`` instead.
+
+    The generator calls are the same on every device and in this order:
+    the uniforms of each group in turn, then z1 (odd df).  The arithmetic
+    after each group's uniforms is one `t_sample.t_from_uniforms` launch
+    for a CUDA float32 or float64 draw (`t_sample.takes`), its plain
+    version elsewhere; the two agree bit for bit.  A group's uniforms are
+    dropped after its step, so at most `GROUP` of them, z, z1 and the total
+    are alive at once: 13 buffers of the draw's shape at most."""
     device = generator.device
-    tiny = torch.finfo(dtype).tiny
-    total = torch.zeros(shape, dtype=dtype, device=device)
-    i = 0
-    while i < k:
-        group = min(10, k - i)
-        prod = torch.ones(shape, dtype=dtype, device=device)
-        for _ in range(group):
-            u = torch.rand(shape, generator=generator, dtype=dtype,
-                           device=device).clamp_min_(tiny)
-            prod.mul_(u)
-        total.sub_(torch.log(prod))
-        i += group
+    step = (t_sample.t_from_uniforms if t_sample.takes(device, dtype)
+            else t_sample.t_from_uniforms_plain)
+    k = df_int // 2
+    starts = list(range(0, k, t_sample.GROUP)) or [0]
+    total = torch.empty(shape, dtype=dtype, device=device)
+    for start in starts:
+        last = start == starts[-1]
+        uniforms = [torch.rand(shape, generator=generator, dtype=dtype,
+                               device=device)
+                    for _ in range(min(t_sample.GROUP, k - start))]
+        z1 = (torch.randn(shape, generator=generator, dtype=dtype,
+                          device=device)
+              if last and df_int % 2 == 1 else None)
+        total = step(uniforms, total, start == 0, last, z=z, z1=z1,
+                     df=df_int)
+        del uniforms, z1  # before the next group's draws reuse the memory
     return total
-
-
-def _chi2_exact(generator, df_int, shape, dtype):
-    """chi2_df = 2 Gamma(df // 2, 1), plus z1^2 when df is odd."""
-    chi2 = torch.zeros(shape, dtype=dtype, device=generator.device)
-    if df_int // 2 > 0:
-        chi2 = 2.0 * _gamma_integer_shape(generator, df_int // 2, shape,
-                                          dtype)
-    if df_int % 2 == 1:
-        z1 = torch.randn(shape, generator=generator, dtype=dtype,
-                         device=generator.device)
-        chi2 = chi2 + z1 * z1
-    return chi2
-
-
-def _chi2(generator, df, shape, dtype):
-    if not df > 0:
-        raise ValueError('df must be positive (got {})'.format(df))
-    df_int = _exact_df(df)
-    if df_int is None:
-        return _chi2_gamma(generator, df, shape, dtype)
-    return _chi2_exact(generator, df_int, shape, dtype)
 
 
 def chi2_sample(generator, df, shape, dtype=torch.float32):
     """Chi-square draws: rejection-free for integer ``df`` up to 200, from
     the gamma sampler otherwise (viabel_tpu/distributions.py:65-79)."""
-    return _chi2(generator, df, tuple(shape), dtype)
+    shape, df_int = tuple(shape), _exact_df(df)
+    if df_int is None:
+        return _chi2_gamma(generator, df, shape, dtype)
+    return _chi2_exact(generator, df_int, shape, dtype)
 
 
 def student_t_sample(generator, df, shape, dtype=torch.float32):
@@ -113,10 +112,12 @@ def student_t_sample(generator, df, shape, dtype=torch.float32):
     for integer df up to 200 and from the gamma sampler otherwise.  Same
     distribution as the JAX package's sampler, different draws: the
     generators differ."""
-    shape = tuple(shape)
+    shape, df_int = tuple(shape), _exact_df(df)
     z = torch.randn(shape, generator=generator, dtype=dtype,
                     device=generator.device)
-    return z * torch.sqrt(df / _chi2(generator, df, shape, dtype))
+    if df_int is None:
+        return z * torch.sqrt(df / _chi2_gamma(generator, df, shape, dtype))
+    return _chi2_exact(generator, df_int, shape, dtype, z=z)
 
 
 def t_lognorm(df):

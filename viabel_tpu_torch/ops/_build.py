@@ -20,7 +20,7 @@ __all__ = ['load', 'build_all', 'SOURCES']
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, 'csrc')
 _BUILD = os.path.join(_PKG, '_build')
-SOURCES = ('lw_stats', 'gaussian_lw', 'adagrad', 'klvi_mf')
+SOURCES = ('lw_stats', 'gaussian_lw', 'adagrad', 'klvi_mf', 't_sample')
 _FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
           '-shared', '-Xcompiler', '-fPIC', '-Xptxas=-v')
 
